@@ -10,14 +10,17 @@ result line:
 2. the build: nvcc compiles every kernel of the decode path from
    vvdec_tpu_torch/csrc/ into build/kernels/;
 3. each kernel against its plain PyTorch version on the card, bit-equal,
-   with its time, the plain version's time and its bound per shape;
+   with its time, the plain version's time and its bound per shape,
+   through the one-group wrapper itx_batch_cuda;
 4. the main path: the headline all-intra 832x480 Main10 stream (8
    frames, made by the port's own test encoder) decoded through
-   vvdec_tpu_torch.decoder.decode_annexb on CUDA; every kernel's launch
-   count must rise in that run and the decoded YUV must have the MD5 the
-   CPU tests pin to the reference decoder; then the same kernels are
-   held to their plain versions, and timed, on the inputs the main path
-   gave them, and the stage split of a profiled decode is printed;
+   vvdec_tpu_torch.decoder.decode_annexb on CUDA; the ITX kernel must be
+   launched exactly once per decoded frame (itx_frame_cuda) and the
+   decoded YUV must have the MD5 the CPU tests pin to the reference
+   decoder; then the kernel is held to its plain version, and timed, on
+   every frame's inputs as the main path gave them, the per-shape table
+   is redone from one-group launches of those frames' TUs, and the stage
+   split of a profiled decode is printed;
 5. the device's busy share over a one-frame decode, from torch.profiler.
 
 The last three lines of standard output are the kernels' JSON summary,
@@ -25,7 +28,11 @@ the card's name and power limit, and {"ok": true, "device": ...}.  In
 the summary, ms, plain_ms and bound_ms are per decoded frame of the main
 path: ms is the kernel's device time and plain_ms the plain version's,
 both read from torch.profiler; call_ms is the wrapper calls' stream time
-by CUDA events, which adds the host's cost between launches.
+by CUDA events, which adds the host's cost between launches.  bound_ms
+counts int16 levels in and int32 residuals out, the work table and the
+matrices, and the hi/lo split's two int8 products at the int8
+tensor-core peak; the int32-level, float32-peak bound of the first port
+is printed beside it.
 Needs a CUDA device; imports neither JAX nor the JAX package.
 """
 
@@ -41,9 +48,13 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-# the card's peak outside the tensor cores (float32, 2 ops per FMA); its
-# int32 multiply-add rate is no higher, so this bounds the integer ITX
-PEAK_OPS_PER_S = 67e12
+# dense int8 tensor-core peak (2 ops per multiply-add): the kernel's
+# products are the hi/lo split's two int8 products
+PEAK_INT8_OPS_PER_S = 1979e12
+# the card's peak outside the tensor cores (float32), which bounded the
+# first port's int32 products; printed beside the int8 bound
+PEAK_F32_OPS_PER_S = 67e12
+TABLE_ROW_BYTES = 40        # one TU row of the work table (10 int32)
 BIT_DEPTH = 10
 
 
@@ -113,19 +124,41 @@ def device_ms(fn, reps: int, match: str | None = None,
     return sum(spans) / len(spans) / 1e3 * launches
 
 
-def itx_work(n: int, h: int, w: int) -> tuple[int, int]:
-    """(bytes, operations) one itx_batch call must move / do: levels in
-    and residuals out (int32), three int32 per-TU scalars, both
-    matrices; two products of 2 ops per multiply-add per coefficient."""
-    nbytes = 2 * 4 * n * h * w + 12 * n + 4 * (h * h + w * w)
-    ops = 2 * n * h * w * (h + w)
-    return nbytes, ops
+def itx_work(n: int, h: int, w: int, level_bytes: int = 2
+             ) -> tuple[int, int, int, int]:
+    """(bytes, int8 operations, first-port bytes, first-port operations)
+    of n TUs of h x w.  Bytes: levels in (level_bytes each), int32
+    residuals out, one table row per TU, both matrices as s8; operations:
+    two int8 products (hi and lo) of 2 ops per multiply-add, h + w
+    multiply-adds per coefficient.  The first port's count: int32 levels,
+    three int32 per-TU scalars, int32 matrices, one int32 product."""
+    coefs = n * h * w
+    macs = coefs * (h + w)
+    return (coefs * (level_bytes + 4) + TABLE_ROW_BYTES * n + h * h + w * w,
+            2 * 2 * macs,
+            coefs * 8 + 12 * n + 4 * (h * h + w * w),
+            2 * macs)
 
 
-def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float, peak: float = PEAK_INT8_OPS_PER_S
+             ) -> tuple[float, str]:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / PEAK_OPS_PER_S * 1e3
+    to = ops / peak * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def frame_work(rows) -> tuple[int, int, int, int]:
+    """itx_work summed over a work table's TU rows (numpy [N, 10]), the
+    matrices counted once per distinct matrix."""
+    import numpy as np
+    coefs = (1 << (rows[:, 3] + rows[:, 4])).astype(np.int64)
+    macs = int((coefs * ((1 << rows[:, 3]) + (1 << rows[:, 4]))).sum())
+    mats = {(int(o), 1 << int(lg)) for o, lg in
+            np.concatenate([rows[:, [5, 3]], rows[:, [6, 4]]])}
+    mat = sum(n * n for _, n in mats)
+    return (int(coefs.sum()) * 6 + TABLE_ROW_BYTES * len(rows) + mat,
+            4 * macs, int(coefs.sum()) * 8 + 12 * len(rows) + 4 * mat,
+            2 * macs)
 
 
 def phase_card() -> str:
@@ -190,8 +223,10 @@ def phase_kernel_vs_plain(errs: list) -> None:
           f"at N=4096 DCT2: device time of itx_kernel and of the plain "
           f"version's kernels (torch.profiler), and each call's stream "
           f"time with the host's launch cost (CUDA events)")
+    print(f"[kernel] bound_ms: int32 levels (this wrapper's input), int8 "
+          f"tensor-core peak; bound_i32: the first port's count")
     print(f"[kernel] {'h x w':>7} {'ms':>9} {'plain_ms':>9} {'bound_ms':>9} "
-          f"{'call_ms':>9} {'plain_call':>10} bound_by")
+          f"{'bound_i32':>9} {'call_ms':>9} {'plain_call':>10} bound_by")
     n_cases = 0
     for h, w in shapes:
         for hor, ver in kinds:
@@ -230,18 +265,23 @@ def phase_kernel_vs_plain(errs: list) -> None:
         p_ms = device_ms(run_plain, 3)
         kc_ms = cuda_ms(run_kernel, 20)
         pc_ms = cuda_ms(run_plain, 3)
-        b_ms, by = bound_ms(*itx_work(4096, h, w))
+        nb, ops, nb1, ops1 = itx_work(4096, h, w, level_bytes=4)
+        b_ms, by = bound_ms(nb, ops)
+        b1_ms = bound_ms(nb1, ops1, PEAK_F32_OPS_PER_S)[0]
         print(f"[kernel] {h:>3} x{w:>3} {k_ms:9.4f} {p_ms:9.4f} {b_ms:9.5f} "
-              f"{kc_ms:9.4f} {pc_ms:10.4f} {by}")
+              f"{b1_ms:9.5f} {kc_ms:9.4f} {pc_ms:10.4f} {by}")
     print(f"[kernel] {n_cases} cases bit-equal, all-zero levels give 0")
 
 
 def phase_main_path(errs: list) -> dict:
     import torch
 
+    import vvdec_tpu_torch.ops.frame_device as frame_device
     import vvdec_tpu_torch.ops.pipeline as pipeline
     from vvdec_tpu_torch.decoder import decode_annexb
-    from vvdec_tpu_torch.ops.cuda.itx import itx_batch_cuda, itx_batch_ref
+    from vvdec_tpu_torch.ops.cuda.itx import (itx_batch_cuda, itx_frame_cuda,
+                                              itx_frame_ref, matrix_pool,
+                                              table_rows)
     from vvdec_tpu_torch.streams import (HEADLINE_MD5, HEADLINE_STREAM_KW,
                                          headline_stream)
     from vvdec_tpu_torch.utils.trace import profiler
@@ -254,109 +294,119 @@ def phase_main_path(errs: list) -> dict:
           f"{len(stream)} bytes, made in {time.perf_counter() - t0:.1f} s")
 
     # warm-up decode; it also records the kernel's inputs as the main
-    # path gives them, for the comparison and timings below
+    # path gives them (the residual planes as they were before the call)
+    # and counts the TUs of the PyTorch residual paths
     recorded = []
+    census = {"transform skip": 0, "lfnst": 0, "scaling list": 0}
 
-    def recorder(*args, h, w, bit_depth):
-        recorded.append(([a.clone() for a in args], h, w, bit_depth))
-        return itx_batch_cuda(*args, h=h, w=w, bit_depth=bit_depth)
+    def recorder(coef, resi, table, pool, *, n_tasks, bit_depth):
+        recorded.append(dict(
+            coef=[None if c is None else c.clone() for c in coef],
+            resi=[r.clone() for r in resi], table=table.clone(),
+            n_tasks=n_tasks, bit_depth=bit_depth))
+        return itx_frame_cuda(coef, resi, table, pool, n_tasks=n_tasks,
+                              bit_depth=bit_depth)
 
-    pipeline.itx_batch_cuda = recorder
+    def counting(name, factory):
+        def make(*args, **kw):
+            fn = factory(*args, **kw)
+
+            def run(levels, *rest):
+                census[name] += levels.shape[0]
+                return fn(levels, *rest)
+            return run
+        return make
+
+    saved = (pipeline._ts_fn, pipeline._itx_lfnst_fn, pipeline._itx_fn)
+    frame_device.itx_frame_cuda = recorder
+    pipeline._ts_fn = counting("transform skip", saved[0])
+    pipeline._itx_lfnst_fn = counting("lfnst", saved[1])
+    pipeline._itx_fn = counting("scaling list", saved[2])
     try:
         t0 = time.perf_counter()
         decode_annexb(stream)
         torch.cuda.synchronize()
         print(f"[main] warm-up decode {time.perf_counter() - t0:.2f} s")
     finally:
-        pipeline.itx_batch_cuda = itx_batch_cuda
+        frame_device.itx_frame_cuda = itx_frame_cuda
+        pipeline._ts_fn, pipeline._itx_lfnst_fn, pipeline._itx_fn = saved
+    fail_unless(len(recorded) == n_frames, f"the warm-up decode made "
+                f"{len(recorded)} itx_frame_cuda calls for {n_frames} "
+                f"frames")
+    rows = [table_rows(r["table"], r["n_tasks"]) for r in recorded]
+    print(f"[main] TUs per frame: kernel {sum(map(len, rows)) / n_frames:.1f}"
+          f" ({sum(r['n_tasks'] for r in recorded) / n_frames:.1f} blocks); "
+          + "; ".join(f"{k} {v / n_frames:.1f}" for k, v in census.items()))
 
     # the main path: counts set to 0 just before, read just after
+    itx_frame_cuda.launches = 0
     itx_batch_cuda.launches = 0
     t0 = time.perf_counter()
     frames = decode_annexb(stream)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = itx_batch_cuda.launches
+    launches = itx_frame_cuda.launches
+    batch_launches = itx_batch_cuda.launches
     yuv = b"".join(p.astype("<u2", copy=False).tobytes()
                    for f in frames for p in f)
     md5 = hashlib.md5(yuv).hexdigest()
     print(f"[main] decode_annexb on cuda: {len(frames)} frames in {dt:.3f} s "
-          f"= {len(frames) / dt:.2f} frames/s; itx launches {launches}; "
-          f"md5 {md5}")
+          f"= {len(frames) / dt:.2f} frames/s; itx launches {launches} "
+          f"(itx_batch_cuda {batch_launches}); md5 {md5}")
     fail_unless(len(frames) == n_frames, f"{len(frames)} frames decoded")
     fail_unless(all(f[0].shape == (480, 832) and f[1].shape == (240, 416)
                     for f in frames), "unexpected plane shapes")
-    fail_unless(launches > 0, "the ITX kernel was never launched on the "
-                "main path")
+    fail_unless(launches == len(frames), f"{launches} ITX kernel launches "
+                f"for {len(frames)} decoded frames")
     fail_unless(md5 == HEADLINE_MD5, f"decoded YUV md5 {md5} != pinned "
                 f"{HEADLINE_MD5}")
 
-    # the kernel against its plain version at the main path's inputs
-    for args, h, w, bd in recorded:
-        got = itx_batch_cuda(*args, h=h, w=w, bit_depth=bd)
-        want = itx_batch_ref(*args, h=h, w=w, bit_depth=bd)
-        err = int((got - want).abs().max()) if got.numel() else 0
+    # the kernel against its plain version on every recorded frame
+    pool = matrix_pool(torch.device("cuda"))
+
+    def run_frame(fn, rec, resi=None):
+        return fn(rec["coef"], resi if resi is not None else rec["resi"],
+                  rec["table"], pool, n_tasks=rec["n_tasks"],
+                  bit_depth=rec["bit_depth"])
+
+    for i, rec in enumerate(recorded):
+        got = run_frame(itx_frame_cuda, rec, [r.clone() for r in rec["resi"]])
+        want = run_frame(itx_frame_ref, rec, [r.clone() for r in rec["resi"]])
+        err = max(int((a - b).abs().max()) for a, b in zip(got, want))
         errs.append(err)
-        fail_unless(err == 0, f"itx {h}x{w} N={args[0].shape[0]} on the "
-                    f"main path's inputs: max |err| {err}")
+        fail_unless(err == 0, f"itx frame {i} on the main path's inputs: "
+                    f"max |err| {err}")
     torch.cuda.synchronize()
     print(f"[main] itx kernel == plain version on all {len(recorded)} "
-          f"recorded main-path launches")
+          f"recorded main-path frames")
 
-    # per shape group, per frame: launches, TUs; the kernel's and the
-    # plain version's device time (torch.profiler); the wrapper's and the
-    # plain version's stream time over the group's calls, which adds the
-    # host's cost between launches (CUDA events); the bound
-    groups: dict = {}
-    for rec in recorded:
-        groups.setdefault((rec[1], rec[2]), []).append(rec)
-    print(f"[main] itx per shape group, ms per frame (of {n_frames}); ms "
-          f"and plain_ms are device time, call_ms and plain_call the "
-          f"stream time of the calls")
-    print(f"[main] {'h x w':>7} {'launch':>6} {'TUs':>6} {'ms':>8} "
-          f"{'plain_ms':>9} {'bound_ms':>9} {'call_ms':>8} {'plain_call':>10}")
-    tot = dict(ms=0.0, plain_ms=0.0, call_ms=0.0, plain_call_ms=0.0,
-               nbytes=0, ops=0)
-    rows = []
-    for (h, w), recs in sorted(groups.items(), key=lambda kv: -sum(
-            r[0][0].shape[0] * kv[0][0] * kv[0][1] for r in kv[1])):
-        def run_kernel(recs=recs):
-            for args, hh, ww, bd in recs:
-                itx_batch_cuda(*args, h=hh, w=ww, bit_depth=bd)
+    # per frame: the kernel's and the plain version's device time
+    # (torch.profiler); the wrapper's and the plain version's stream time,
+    # which adds the host's cost (CUDA events); the bounds
+    scratch = [[r.clone() for r in rec["resi"]] for rec in recorded]
 
-        def run_plain(recs=recs):
-            for args, hh, ww, bd in recs:
-                itx_batch_ref(*args, h=hh, w=ww, bit_depth=bd)
+    def run_kernel():
+        for rec, resi in zip(recorded, scratch):
+            run_frame(itx_frame_cuda, rec, resi)
 
-        k_ms = device_ms(run_kernel, 10, "itx_kernel",
-                         launches=len(recs)) / n_frames
-        p_ms = device_ms(run_plain, 3) / n_frames
-        kc_ms = cuda_ms(run_kernel, 10) / n_frames
-        pc_ms = cuda_ms(run_plain, 3) / n_frames
-        tus = sum(r[0][0].shape[0] for r in recs)
-        nb = sum(itx_work(r[0][0].shape[0], h, w)[0] for r in recs)
-        ops = sum(itx_work(r[0][0].shape[0], h, w)[1] for r in recs)
-        b_ms, by = bound_ms(nb / n_frames, ops / n_frames)
-        print(f"[main] {h:>3} x{w:>3} {len(recs) / n_frames:6.2f} "
-              f"{tus / n_frames:6.1f} {k_ms:8.4f} {p_ms:9.4f} {b_ms:9.6f} "
-              f"{kc_ms:8.4f} {pc_ms:10.4f}")
-        rows.append(dict(h=h, w=w, launches_per_frame=len(recs) / n_frames,
-                         tus_per_frame=tus / n_frames, ms=k_ms, plain_ms=p_ms,
-                         bound_ms=b_ms, bound_by=by, call_ms=kc_ms,
-                         plain_call_ms=pc_ms))
-        tot["ms"] += k_ms
-        tot["plain_ms"] += p_ms
-        tot["call_ms"] += kc_ms
-        tot["plain_call_ms"] += pc_ms
-        tot["nbytes"] += nb / n_frames
-        tot["ops"] += ops / n_frames
-    b_ms, by = bound_ms(tot["nbytes"], tot["ops"])
-    print(f"[main] itx per frame: {len(recorded) / n_frames:.2f} launches; "
-          f"device time kernel {tot['ms']:.4f} ms, plain "
-          f"{tot['plain_ms']:.4f} ms; bound {b_ms:.6f} ms ({by}); stream "
-          f"time of the calls: wrapper {tot['call_ms']:.4f} ms, plain "
-          f"{tot['plain_call_ms']:.4f} ms")
+    def run_plain():
+        for rec, resi in zip(recorded, scratch):
+            run_frame(itx_frame_ref, rec, resi)
 
+    k_ms = device_ms(run_kernel, 10, "itx_kernel",
+                     launches=n_frames) / n_frames
+    p_ms = device_ms(run_plain, 3) / n_frames
+    kc_ms = cuda_ms(run_kernel, 10) / n_frames
+    pc_ms = cuda_ms(run_plain, 3) / n_frames
+    work = [sum(v) / n_frames for v in zip(*map(frame_work, rows))]
+    b_ms, by = bound_ms(work[0], work[1])
+    b1_ms, by1 = bound_ms(work[2], work[3], PEAK_F32_OPS_PER_S)
+    print(f"[main] itx per frame: {launches / n_frames:.2f} launches; device "
+          f"time kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
+          f"{b_ms:.6f} ms ({by}; int32 levels at the float32 peak: "
+          f"{b1_ms:.6f} ms, {by1}); stream time of the calls: wrapper "
+          f"{kc_ms:.4f} ms, plain {pc_ms:.4f} ms")
+    shapes = phase_shape_groups(recorded, rows, pool, n_frames)
     # stage split: the profiler synchronises the device at the end of
     # each device stage, so each stage's time includes its device work
     profiler.reset()
@@ -383,11 +433,80 @@ def phase_main_path(errs: list) -> dict:
           f"per step")
     return dict(fps=len(frames) / dt, decode_s=dt, launches=launches,
                 launches_per_frame=launches / n_frames, md5=md5,
-                itx_ms=tot["ms"], itx_plain_ms=tot["plain_ms"],
-                itx_call_ms=tot["call_ms"],
-                itx_plain_call_ms=tot["plain_call_ms"], itx_bound_ms=b_ms, itx_bound_by=by, groups=rows,
+                census_per_frame=dict(
+                    kernel=sum(map(len, rows)) / n_frames,
+                    **{k: v / n_frames for k, v in census.items()}),
+                itx_ms=k_ms, itx_plain_ms=p_ms, itx_call_ms=kc_ms,
+                itx_plain_call_ms=pc_ms, itx_bound_ms=b_ms, itx_bound_by=by,
+                itx_bound_int32_f32_ms=b1_ms, shapes=shapes,
                 stages_ms_per_frame=stages, intra_units=units / n_frames,
                 intra_steps=steps / n_frames)
+
+
+def phase_shape_groups(recorded, rows, pool, n_frames) -> list:
+    """Per TU shape, per frame: the main path's recorded TUs run as
+    one-group itx_batch_cuda launches (one per frame, shape and matrix
+    pair), timed as in the first port's per-group table: launches, TUs,
+    device time of the kernel and the plain version, bounds, stream
+    time of the calls."""
+    import numpy as np
+    import torch
+
+    from vvdec_tpu_torch.ops.cuda.itx import itx_batch_cuda, itx_batch_ref
+    from vvdec_tpu_torch.ops.frame_device import _extract_fn
+    batches: dict = {}
+    for rec, r in zip(recorded, rows):
+        keys, inv = np.unique(r[:, [0, 3, 4, 5, 6]], axis=0,
+                              return_inverse=True)
+        for gi, (comp, lh, lw, mv_off, mh_off) in enumerate(keys.tolist()):
+            sel = torch.as_tensor(r[inv.reshape(-1) == gi], device="cuda")
+            h, w = 1 << lh, 1 << lw
+            levels = _extract_fn(h, w, len(sel))(rec["coef"][comp],
+                                                 sel[:, 1], sel[:, 2])
+            mv = pool[mv_off:mv_off + h * h].view(h, h).t().to(torch.int32)
+            mh = pool[mh_off:mh_off + w * w].view(w, w).t().to(torch.int32)
+            batches.setdefault((h, w), []).append(
+                (levels.contiguous(), sel[:, 7].contiguous(),
+                 sel[:, 8].contiguous(), sel[:, 9].contiguous(),
+                 mv.contiguous(), mh.contiguous()))
+    print(f"[main] itx per shape, one-group launches of the recorded TUs, "
+          f"ms per frame (of {n_frames}); ms and plain_ms are device time, "
+          f"call_ms the calls' stream time; bound_i32 is the first port's")
+    print(f"[main] {'h x w':>7} {'launch':>6} {'TUs':>6} {'ms':>8} "
+          f"{'plain_ms':>9} {'bound_ms':>9} {'bound_i32':>9} {'call_ms':>8}")
+    out = []
+    for (h, w), args in sorted(batches.items(), key=lambda kv: -sum(
+            a[0].shape[0] for a in kv[1]) * kv[0][0] * kv[0][1]):
+        def run_kernel(args=args, h=h, w=w):
+            for a in args:
+                itx_batch_cuda(*a, h=h, w=w, bit_depth=BIT_DEPTH)
+
+        def run_plain(args=args, h=h, w=w):
+            for a in args:
+                itx_batch_ref(*a, h=h, w=w, bit_depth=BIT_DEPTH)
+
+        for a in args:
+            got = itx_batch_cuda(*a, h=h, w=w, bit_depth=BIT_DEPTH)
+            fail_unless(torch.equal(got, itx_batch_ref(
+                *a, h=h, w=w, bit_depth=BIT_DEPTH)), f"itx {h}x{w} one-group "
+                f"launch of recorded TUs differs from its plain version")
+        k_ms = device_ms(run_kernel, 10, "itx_kernel",
+                         launches=len(args)) / n_frames
+        p_ms = device_ms(run_plain, 3) / n_frames
+        kc_ms = cuda_ms(run_kernel, 10) / n_frames
+        tus = sum(a[0].shape[0] for a in args)
+        nb, ops, nb1, ops1 = itx_work(tus, h, w)
+        b_ms, by = bound_ms(nb / n_frames, ops / n_frames)
+        b1_ms = bound_ms(nb1 / n_frames, ops1 / n_frames,
+                         PEAK_F32_OPS_PER_S)[0]
+        print(f"[main] {h:>3} x{w:>3} {len(args) / n_frames:6.2f} "
+              f"{tus / n_frames:6.1f} {k_ms:8.4f} {p_ms:9.4f} {b_ms:9.6f} "
+              f"{b1_ms:9.6f} {kc_ms:8.4f}")
+        out.append(dict(h=h, w=w, launches_per_frame=len(args) / n_frames,
+                        tus_per_frame=tus / n_frames, ms=k_ms, plain_ms=p_ms,
+                        bound_ms=b_ms, bound_by=by, bound_int32_f32_ms=b1_ms,
+                        call_ms=kc_ms))
+    return out
 
 
 def wavefront_schedule(stream: bytes) -> tuple[int, int]:
@@ -484,7 +603,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     kernels = [dict(
-        name="itx_batch", route="cuda", source="vvdec_tpu_torch/csrc/itx.cu",
+        name="itx_frame", route="cuda", source="vvdec_tpu_torch/csrc/itx.cu",
         replaces="vvdec_tpu/ops/pallas/itx.py:96",
         launches=main_path["launches"], max_abs_err=max(errs),
         ms=main_path["itx_ms"], plain_ms=main_path["itx_plain_ms"],

@@ -138,13 +138,14 @@ def test_extract_and_scatter_clamp_like_dynamic_slice():
     xs = np.array([52, 0, 55, 60, 16], dtype=np.int32)
     h, w = 8, 4
     want = _np(R._extract_fn(h, w, 5)(*_jax((plane, ys, xs))))
-    got = to_numpy(T._extract_fn(h, w, 5)(*to_torch((plane, ys, xs))))
+    got = to_numpy(T._extract_fn(h, w, 5)(*to_torch((plane, ys, xs),
+                                                    "cpu")))
     assert np.array_equal(got, want)
     blocks = rng.integers(-500, 500, size=(5, h, w)).astype(np.int32)
     base = np.zeros((40, 56), np.int32)
     want = _np(R._scatter_fn(40, 56, h, w, 5)(*_jax((base, blocks, ys, xs))))
     got = to_numpy(T._scatter_fn(40, 56, h, w, 5)(
-        *to_torch((base, blocks, ys, xs))))
+        *to_torch((base, blocks, ys, xs), "cpu")))
     assert np.array_equal(got, want)
 
 
@@ -187,7 +188,8 @@ def test_gather_refs_matches(frames):
     hh, ww = WH[1] + T.PB, WH[0] + T.PB
     P = rng.integers(0, 1024, size=(3, hh, ww)).astype(np.int32)
     rows = np.concatenate([desc, _fuzz_rows(rng, 300, hh, ww)])
-    top, left = to_numpy(T._gather_refs(to_torch(P), to_torch(rows), 10))
+    top, left = to_numpy(T._gather_refs(to_torch(P, "cpu"),
+                                        to_torch(rows, "cpu"), 10))
     for i, d in enumerate(rows):
         t, le = R._gather_refs(_jax(P[d[0]]), _jax(d), 10)
         assert np.array_equal(top[i], _np(t)), i
@@ -216,7 +218,7 @@ def test_intra_wavefront_matches(frames, K):
         want = _np(R._intra_wavefront_fn(*key, K, False)(
             *_jax((planes, tuple(resi), batches, lm))))
         got = to_numpy(T._intra_wavefront_fn(*key, K)(
-            to_torch(planes), to_torch(tuple(resi)), batches))
+            to_torch(planes, "cpu"), to_torch(tuple(resi), "cpu"), batches))
         for a, b in zip(got, want):
             assert np.array_equal(a, b)
 
@@ -252,15 +254,15 @@ def test_chain_fn_matches(frames, name):
         assert np.array_equal(v, arrays[k]), k
     flat = R._flat_pack(key, arrays)
     assert np.array_equal(T._flat_pack(key, db_port), flat)
-    unpacked = T._flat_unpack(key, to_torch(flat))
+    unpacked = T._flat_unpack(key, to_torch(flat, "cpu"))
     for k, v in R._flat_unpack(key, _jax(flat)).items():
         assert np.array_equal(to_numpy(unpacked[k]), _np(v)), k
     blocky = [_blocky(rng, p.shape[0], p.shape[1]) for p in real]
     for planes in (real, blocky):
         want_p, want_b = _np(R._chain_fn(key)(_jax(tuple(planes)),
                                               _jax(flat)))
-        got_p, got_b = to_numpy(T._chain_fn(key)(to_torch(tuple(planes)),
-                                                 to_torch(flat)))
+        got_p, got_b = to_numpy(T._chain_fn(key)(
+            to_torch(tuple(planes), "cpu"), to_torch(flat, "cpu")))
         assert np.array_equal(got_b, want_b)
         for a, b in zip(got_p, want_p):
             assert np.array_equal(a, b)
@@ -294,12 +296,13 @@ def test_deblock_table_indices_stay_in_range():
         plane = _blocky(rng, H, W, bd)
         cplane = _blocky(rng, H // 2, W // 2, bd)
         cases = [(R.deblock_luma_dense_core(H, W, bd, ctu, d1, n_sl),
-                  T.deblock_luma_dense_core(H, W, bd, ctu, d1, n_sl),
+                  T.deblock_luma_dense_core(H, W, bd, ctu, d1, n_sl, "cpu"),
                   plane, luma) for d1 in (False, True)]
         cases += [(R.deblock_chroma_dense_core(H // 2, W // 2, bd, ctu // 2,
                                                2, d1, 2, 2, n_sl, comp),
                    T.deblock_chroma_dense_core(H // 2, W // 2, bd, ctu // 2,
-                                               2, d1, 2, 2, n_sl, comp),
+                                               2, d1, 2, 2, n_sl, comp,
+                                               "cpu"),
                    cplane, chroma) for d1 in (False, True) for comp in (1, 2)]
         for ref, port, pl, grid in cases:
             want = np.asarray(ref(*(jnp.asarray(a)
@@ -318,7 +321,7 @@ def test_readback_unpacks_planes(frames):
     cs_ref, cs_port = frames["420"][0]
     rng = np.random.default_rng(9)
     planes = [_blocky(rng, h, w) for (w, h) in cs_port.comp_size]
-    pending = filter_frame_device(cs_port, to_torch(planes))
+    pending = filter_frame_device(cs_port, to_torch(planes, "cpu"))
     dev_planes = to_numpy(pending.planes_dev)
     host = pending.resolve()
     for a, b in zip(host, dev_planes):
@@ -385,9 +388,9 @@ def test_state_round_trip_keeps_values_and_dtypes():
               rng.integers(-2**31, 2**31, (4,)).astype(np.int32),
               rng.random(6) < 0.5)
     for src in (arrays, [jnp.asarray(a) for a in arrays]):
-        t = to_torch(src)
+        t = to_torch(src, "cpu")
         assert type(t) is type(src)
         back = to_numpy(t)
         for a, b in zip(arrays, back):
             assert b.dtype == a.dtype and np.array_equal(a, b)
-    assert to_torch(None) is None and to_numpy(None) is None
+    assert to_torch(None, "cpu") is None and to_numpy(None) is None

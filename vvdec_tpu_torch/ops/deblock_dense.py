@@ -98,7 +98,7 @@ def _rep(v, fy: int, fx: int):
 
 @functools.lru_cache(maxsize=None)
 def deblock_luma_dense_core(H: int, W: int, bd: int, ctu: int, dir1: bool,
-                            n_sl: int, device: str = "cpu"):
+                            n_sl: int, device: str):
     """Dense luma edge filter; edges vertical on 4-grid columns.
 
     apply(plane [H, W], grid [H4, W4] int16, si [H4, W4] int16,
@@ -318,7 +318,7 @@ def deblock_luma_dense_core(H: int, W: int, bd: int, ctu: int, dir1: bool,
 @functools.lru_cache(maxsize=None)
 def deblock_chroma_dense_core(H: int, W: int, bd: int, ctu_c: int,
                               L: int, dir1: bool, fy: int, fx: int,
-                              n_sl: int, comp: int, device: str = "cpu"):
+                              n_sl: int, comp: int, device: str):
     """Dense chroma edge filter; edges vertical on 8-grid columns,
     segments of L parallel rows (L = 4/sub along the edge direction).
 

@@ -1,16 +1,18 @@
 """Device-resident whole-frame reconstruction.
 
 Port of the intra path of vvdec_tpu/ops/frame_device.py: dequant +
-inverse transform batched per TU shape (the ITX stage, with the
-hand-written kernel on CUDA), the intra wavefront scan
+inverse transform (the ITX stage: every plain TU of the frame in one
+launch of the hand-written kernel on CUDA, transform-skip, LFNST and
+scaling-list TUs batched per shape in PyTorch), the intra wavefront scan
 (ops/intra_device.py), then the deblocking filter chain + 10-bit output
 packing (ops/device_pipeline.py), all in device memory.  The host
 uploads one int16 coefficient plane per component and a few descriptor
 arrays per frame and reads back one packed buffer.
 
 Differences from the JAX stage, none of which changes a decoded sample:
-the TU batches are not padded to powers of two (PyTorch runs eagerly and
-compiles nothing per shape), and the residual planes are updated in
+the plain TUs run in one launch instead of one per shape group, the
+other TU batches are not padded to powers of two (PyTorch runs eagerly
+and compiles nothing per shape), and the residual planes are updated in
 place.  Pictures outside the ported tool set are rejected by
 `plan_frame_device` with a named reason; there is no host fallback.
 """
@@ -24,6 +26,11 @@ import torch
 
 from vvdec_tpu_torch.device import resolve_device
 from vvdec_tpu_torch.frame.structure import MODE_INTRA, MTS_SKIP
+from vvdec_tpu_torch.ops.cuda.itx import (
+    frame_table,
+    itx_frame_cuda,
+    matrix_pool,
+)
 from vvdec_tpu_torch.ops.device_pipeline import (
     device_filter_reject_reason,
     filter_frame_device,
@@ -147,6 +154,9 @@ def itx_residual_device(cs, device=None) -> list:
         else:
             coefd.append(None)
 
+    # plain TUs (no transform skip, LFNST or scaling list), for the ITX
+    # kernel, and the other groups, which keep their PyTorch paths
+    plain: dict[tuple, list] = {}
     groups: dict[tuple, list] = {}
     jccr_ops: dict[tuple, list] = {}
     for tu in cs.tus:
@@ -191,15 +201,26 @@ def itx_residual_device(cs, device=None) -> list:
                 key = (comp, w, h, hor, ver, lt, dq, sb, zero)
                 groups.setdefault(key, []).append(
                     (x, y, qp, smat, mat[:, :zero], transpose))
+            elif lt is None:
+                plain.setdefault((comp, w, h, hor, ver, dq), []).append(
+                    (x, y, qp))
             else:
                 key = (comp, w, h, hor, ver, lt, dq)
                 groups.setdefault(key, []).append((x, y, qp, smat))
 
-    # every group's (y, x, qp) rides one upload, sliced per group on the
-    # device: a host->device copy synchronises the stream, so one per
-    # group would hold the host at each of the ~40 groups of a frame
-    meta = up(np.array([[it[k] for items in groups.values() for it in items]
-                        for k in (1, 0, 2)], dtype=np.int32).reshape(3, -1))
+    # every plain TU goes to the ITX kernel in one launch, driven by a
+    # work table; the other groups write disjoint rectangles, so their
+    # order against it does not matter.  The work table and the other
+    # groups' (y, x, qp) ride one upload, sliced on the device: a
+    # host->device copy synchronises the stream, so one per group would
+    # hold the host at each group of a frame
+    table, n_tasks = frame_table(plain.items(), bd)
+    meta = np.array([[it[k] for items in groups.values() for it in items]
+                     for k in (1, 0, 2)], dtype=np.int32).reshape(-1)
+    buf = up(np.concatenate([meta, table]))
+    meta = buf[:meta.size].view(3, -1)
+    resi = itx_frame_cuda(coefd, resi, buf[meta.numel():], matrix_pool(dev),
+                          n_tasks=n_tasks, bit_depth=bd)
     pos = 0
     for key, items in groups.items():
         n = len(items)
@@ -221,8 +242,7 @@ def itx_residual_device(cs, device=None) -> list:
                                    use_sl=lt is not None)
                 args = (levels, qps, up(kern), up(trans))
             else:
-                fn = _itx_fn(h, w, hor, ver, bd, dep_quant,
-                             use_sl=lt is not None)
+                fn = _itx_fn(h, w, hor, ver, bd, dep_quant)
                 args = (levels, qps)
             out = fn(*args, up(items[0][3])) if lt is not None \
                 else fn(*args)

@@ -4,9 +4,11 @@ LFNST) and the deblocking tables.
 Subset of vvdec_tpu/ops/pipeline.py.  Each `_*_fn` factory returns a
 function over torch tensors; constants are placed on the input's device
 on first use.  Integer products go through float64 (`_exact_dot`): CUDA
-has no int32 matmul and float32 is not exact at these magnitudes.  On
-CUDA, 2-D TUs without a scaling list run the hand-written ITX kernel
-(ops/cuda/itx.py), as the JAX package sends them to Pallas.
+has no int32 matmul and float32 is not exact at these magnitudes.  TUs
+without transform skip, LFNST or a scaling list do not come here: the
+ITX stage runs them all in one launch of the hand-written kernel
+(ops/cuda/itx.itx_frame_cuda), where the JAX package sends them to
+Pallas.
 """
 
 from __future__ import annotations
@@ -17,12 +19,7 @@ import numpy as np
 import torch
 
 from vvdec_tpu_torch.ops import rom
-from vvdec_tpu_torch.ops.cuda.itx import (
-    _dequant,
-    _exact_dot,
-    dequant_params,
-    itx_batch_cuda,
-)
+from vvdec_tpu_torch.ops.cuda.itx import _dequant, _exact_dot, dequant_params
 from vvdec_tpu_torch.ops.tables import tr_matrix
 
 MAX_LOG2_TR_RANGE = 15
@@ -81,13 +78,10 @@ def _shifts(h: int, w: int, bit_depth: int):
 
 @functools.lru_cache(maxsize=None)
 def _itx_fn(h: int, w: int, tr_hor: str, tr_ver: str, bit_depth: int,
-            dep_quant: bool, use_sl: bool = False):
-    """Batched dequant+ITX for one TU shape: (levels [N,h,w] int32,
-    qp [N] int32[, smat [h,w] int32]) -> residual [N,h,w] int32.
-
-    Without a scaling list every shape goes to itx_batch_cuda (the
-    reference sends 2-D shapes to Pallas and keeps a 1-D branch that no
-    caller can reach: tables.tr_matrix has no size-1 matrix)."""
+            dep_quant: bool):
+    """Batched scaling-list dequant + ITX for one TU shape (the
+    reference's _itx_fn with use_sl): (levels [N,h,w] int32, qp [N]
+    int32, smat [h,w] int32) -> residual [N,h,w] int32."""
     i_transform_shift, scale_tab = _shifts(h, w, bit_depth)
     consts = _DeviceConsts(mv=tr_matrix(tr_ver, h), mh=tr_matrix(tr_hor, w),
                            scales=scale_tab)
@@ -97,18 +91,10 @@ def _itx_fn(h: int, w: int, tr_hor: str, tr_ver: str, bit_depth: int,
     clip_max = (1 << MAX_LOG2_TR_RANGE) - 1
 
     def run(levels: torch.Tensor, qp: torch.Tensor,
-            smat: torch.Tensor | None = None) -> torch.Tensor:
+            smat: torch.Tensor) -> torch.Tensor:
         c = consts.on(levels.device)
-        levels = levels.to(torch.int32).contiguous()
+        levels = levels.to(torch.int32)
         qp = qp.to(torch.int32)
-        if not use_sl:
-            # the hand-written kernel on CUDA; its plain version on CPU
-            scale, rshift, imax = dequant_params(qp, w, h, bit_depth,
-                                                 dep_quant)
-            return itx_batch_cuda(levels, scale.contiguous(),
-                                  rshift.contiguous(), imax.contiguous(),
-                                  c["mv"], c["mh"], h=h, w=w,
-                                  bit_depth=bit_depth)
         deq = _sl_dequant(levels, qp, smat.to(torch.int32), c["scales"],
                           i_transform_shift, dep_quant)
         tmp = _exact_dot("nkx,ky->nxy", deq, c["mv"])

@@ -13,10 +13,10 @@ import numpy as np
 import torch
 
 
-def to_torch(x, device="cpu"):
+def to_torch(x, device):
     """numpy arrays (or anything np.asarray accepts, e.g. JAX arrays) ->
-    torch tensors on `device`; lists and tuples are converted item by
-    item, None passes through."""
+    torch tensors on `device`, which the caller names ("cuda" or "cpu");
+    lists and tuples are converted item by item, None passes through."""
     if x is None:
         return None
     if isinstance(x, (list, tuple)):
