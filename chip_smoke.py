@@ -21,12 +21,24 @@ result line:
    every frame's inputs as the main path gave them, the per-shape table
    is redone from one-group launches of those frames' TUs, and the stage
    split of a profiled decode is printed;
-5. the device's busy share over a one-frame decode, from torch.profiler.
+5. the full intra tool set: the tool-rich intra stream (MIP, CCLM,
+   LFNST, explicit MTS; 8 frames), the SAO/ALF stream (SAO, ALF and
+   CC-ALF on; 8 frames) and the intra LMCS stream (chroma residual
+   scaling; 2 frames), all 832x480 and made by the port's own test
+   encoder (vvdec_tpu_torch/streams.py): per stream a warm-up decode
+   that records the ITX kernel's inputs, a timed decode (one ITX launch
+   per frame, the MD5 the CPU tests pin to the reference decoder) and a
+   profiled decode with its stage split; the kernel is held to its plain
+   version on every recorded frame and timed on the tool-rich stream's;
+6. the device's busy share over a one-frame decode, from torch.profiler.
 
-The last three lines of standard output are the kernels' JSON summary,
-the card's name and power limit, and {"ok": true, "device": ...}.  In
-the summary, ms, plain_ms and bound_ms are per decoded frame of the main
-path: ms is the kernel's device time and plain_ms the plain version's,
+Each phase prints its wall time.  The last three lines of standard
+output are the kernels' JSON summary, the card's name and power limit,
+and {"ok": true, "device": ...}.  In the summary, launches counts the
+ITX launches of the timed decodes of all four streams and max_abs_err
+covers every comparison of the kernel with its plain version; ms,
+plain_ms and bound_ms are per decoded frame of the headline stream: ms
+is the kernel's device time and plain_ms the plain version's,
 both read from torch.profiler; call_ms is the wrapper calls' stream time
 by CUDA events, which adds the host's cost between launches.  bound_ms
 counts int16 levels in and int32 residuals out, the work table and the
@@ -91,7 +103,7 @@ def device_ms(fn, reps: int, match: str | None = None,
     `launches` (the matching kernels one call launches), the result is
     their mean duration times `launches`, which stays right when the
     trace drops an event.  A trace that holds no matching kernel, or
-    fewer than 90% of `launches`, is taken again, up to three times in
+    fewer than 75% of `launches`, is taken again, up to three times in
     all: the tracer loses events now and then."""
     import torch
     from torch.autograd import DeviceType
@@ -109,7 +121,7 @@ def device_ms(fn, reps: int, match: str | None = None,
         spans = [e.time_range.elapsed_us() for e in prof.events()
                  if e.device_type == DeviceType.CUDA
                  and (match is None or match in e.name)]
-        if spans and (want is None or len(spans) >= 0.9 * want):
+        if spans and (want is None or len(spans) >= 0.75 * want):
             break
         print(f"[profile] the trace holds {len(spans)} {what} launches"
               f"{'' if want is None else f' of {want}'}; taking it again")
@@ -273,31 +285,23 @@ def phase_kernel_vs_plain(errs: list) -> None:
     print(f"[kernel] {n_cases} cases bit-equal, all-zero levels give 0")
 
 
-def phase_main_path(errs: list) -> dict:
+def yuv_md5(frames) -> str:
+    return hashlib.md5(b"".join(p.astype("<u2", copy=False).tobytes()
+                                for f in frames for p in f)).hexdigest()
+
+
+def recording_decode(stream: bytes, label: str, census=None) -> list:
+    """One decode on CUDA that records every itx_frame_cuda call's
+    inputs as the decode gives them (the residual planes as they were
+    before the call); with `census`, it also counts the TUs of the
+    PyTorch residual paths.  Returns the recorded calls."""
     import torch
 
     import vvdec_tpu_torch.ops.frame_device as frame_device
     import vvdec_tpu_torch.ops.pipeline as pipeline
     from vvdec_tpu_torch.decoder import decode_annexb
-    from vvdec_tpu_torch.ops.cuda.itx import (itx_batch_cuda, itx_frame_cuda,
-                                              itx_frame_ref, matrix_pool,
-                                              table_rows)
-    from vvdec_tpu_torch.streams import (HEADLINE_MD5, HEADLINE_STREAM_KW,
-                                         headline_stream)
-    from vvdec_tpu_torch.utils.trace import profiler
-
-    t0 = time.perf_counter()
-    stream = headline_stream()
-    n_frames = HEADLINE_STREAM_KW["n_frames"]
-    print(f"[main] headline stream {HEADLINE_STREAM_KW['width']}x"
-          f"{HEADLINE_STREAM_KW['height']} x {n_frames} frames, "
-          f"{len(stream)} bytes, made in {time.perf_counter() - t0:.1f} s")
-
-    # warm-up decode; it also records the kernel's inputs as the main
-    # path gives them (the residual planes as they were before the call)
-    # and counts the TUs of the PyTorch residual paths
+    from vvdec_tpu_torch.ops.cuda.itx import itx_frame_cuda
     recorded = []
-    census = {"transform skip": 0, "lfnst": 0, "scaling list": 0}
 
     def recorder(coef, resi, table, pool, *, n_tasks, bit_depth):
         recorded.append(dict(
@@ -319,26 +323,31 @@ def phase_main_path(errs: list) -> dict:
 
     saved = (pipeline._ts_fn, pipeline._itx_lfnst_fn, pipeline._itx_fn)
     frame_device.itx_frame_cuda = recorder
-    pipeline._ts_fn = counting("transform skip", saved[0])
-    pipeline._itx_lfnst_fn = counting("lfnst", saved[1])
-    pipeline._itx_fn = counting("scaling list", saved[2])
+    if census is not None:
+        pipeline._ts_fn = counting("transform skip", saved[0])
+        pipeline._itx_lfnst_fn = counting("lfnst", saved[1])
+        pipeline._itx_fn = counting("scaling list", saved[2])
     try:
         t0 = time.perf_counter()
         decode_annexb(stream)
         torch.cuda.synchronize()
-        print(f"[main] warm-up decode {time.perf_counter() - t0:.2f} s")
+        print(f"[{label}] warm-up decode {time.perf_counter() - t0:.2f} s")
     finally:
         frame_device.itx_frame_cuda = itx_frame_cuda
         pipeline._ts_fn, pipeline._itx_lfnst_fn, pipeline._itx_fn = saved
-    fail_unless(len(recorded) == n_frames, f"the warm-up decode made "
-                f"{len(recorded)} itx_frame_cuda calls for {n_frames} "
-                f"frames")
-    rows = [table_rows(r["table"], r["n_tasks"]) for r in recorded]
-    print(f"[main] TUs per frame: kernel {sum(map(len, rows)) / n_frames:.1f}"
-          f" ({sum(r['n_tasks'] for r in recorded) / n_frames:.1f} blocks); "
-          + "; ".join(f"{k} {v / n_frames:.1f}" for k, v in census.items()))
+    return recorded
 
-    # the main path: counts set to 0 just before, read just after
+
+def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
+                 label: str) -> dict:
+    """The path as a user drives it: decode_annexb on CUDA, with the
+    kernels' launch counts set to 0 just before and read just after.
+    Fails unless every frame was decoded with one ITX launch and the
+    YUV has its pinned MD5."""
+    import torch
+
+    from vvdec_tpu_torch.decoder import decode_annexb
+    from vvdec_tpu_torch.ops.cuda.itx import itx_batch_cuda, itx_frame_cuda
     itx_frame_cuda.launches = 0
     itx_batch_cuda.launches = 0
     t0 = time.perf_counter()
@@ -347,42 +356,97 @@ def phase_main_path(errs: list) -> dict:
     dt = time.perf_counter() - t0
     launches = itx_frame_cuda.launches
     batch_launches = itx_batch_cuda.launches
-    yuv = b"".join(p.astype("<u2", copy=False).tobytes()
-                   for f in frames for p in f)
-    md5 = hashlib.md5(yuv).hexdigest()
-    print(f"[main] decode_annexb on cuda: {len(frames)} frames in {dt:.3f} s "
-          f"= {len(frames) / dt:.2f} frames/s; itx launches {launches} "
-          f"(itx_batch_cuda {batch_launches}); md5 {md5}")
-    fail_unless(len(frames) == n_frames, f"{len(frames)} frames decoded")
+    md5 = yuv_md5(frames)
+    print(f"[{label}] decode_annexb on cuda: {len(frames)} frames in "
+          f"{dt:.3f} s = {len(frames) / dt:.2f} frames/s; itx launches "
+          f"{launches} (itx_batch_cuda {batch_launches}); md5 {md5}")
+    fail_unless(len(frames) == n_frames, f"{label}: {len(frames)} frames "
+                f"decoded, expected {n_frames}")
     fail_unless(all(f[0].shape == (480, 832) and f[1].shape == (240, 416)
-                    for f in frames), "unexpected plane shapes")
-    fail_unless(launches == len(frames), f"{launches} ITX kernel launches "
-                f"for {len(frames)} decoded frames")
-    fail_unless(md5 == HEADLINE_MD5, f"decoded YUV md5 {md5} != pinned "
-                f"{HEADLINE_MD5}")
+                    for f in frames), f"{label}: unexpected plane shapes")
+    fail_unless(launches == len(frames), f"{label}: {launches} ITX kernel "
+                f"launches for {len(frames)} decoded frames")
+    fail_unless(md5 == md5_pin, f"{label}: decoded YUV md5 {md5} != pinned "
+                f"{md5_pin}")
+    return dict(fps=len(frames) / dt, decode_s=dt, launches=launches,
+                md5=md5)
 
-    # the kernel against its plain version on every recorded frame
-    pool = matrix_pool(torch.device("cuda"))
 
-    def run_frame(fn, rec, resi=None):
-        return fn(rec["coef"], resi if resi is not None else rec["resi"],
-                  rec["table"], pool, n_tasks=rec["n_tasks"],
-                  bit_depth=rec["bit_depth"])
+def profiled_decode(stream: bytes, n_frames: int, md5_pin: str,
+                    label: str) -> dict:
+    """A decode with the stage profiler on, which synchronises the device
+    at the end of each device stage, so each stage's time includes its
+    device work.  Returns ms per frame by stage."""
+    import torch
 
+    from vvdec_tpu_torch.decoder import decode_annexb
+    from vvdec_tpu_torch.utils.trace import profiler
+    profiler.reset()
+    profiler.enabled = True
+    try:
+        t0 = time.perf_counter()
+        frames = decode_annexb(stream)
+        torch.cuda.synchronize()
+        dt_prof = time.perf_counter() - t0
+    finally:
+        profiler.enabled = False
+    stages = {k: v / n_frames * 1e3 for k, v in profiler.totals.items()
+              if not k.startswith("intra step: ")}
+    steps = {k[len("intra step: "):]: (v / n_frames * 1e3,
+                                       profiler.counts[k] / n_frames)
+             for k, v in profiler.totals.items()
+             if k.startswith("intra step: ")}
+    print(f"[{label}] profiled decode {dt_prof:.3f} s; stage ms per frame "
+          f"(synchronised):")
+    for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
+        print(f"[{label}]   {k:<26} {v:9.3f}")
+    # the intra stage by mode class: host time of its steps (no sync)
+    for k, (v, n) in sorted(steps.items(), key=lambda kv: -kv[1][0]):
+        print(f"[{label}]   intra {k:<20} {v:9.3f} ms in {n:6.1f} steps = "
+              f"{v / max(n, 1e-9):.3f} ms per step")
+    stages["intra steps by class"] = steps
+    # the device filter chain in all: what earlier runs called filter+pack
+    stages["filter (all)"] = sum(v for k, v in stages.items()
+                                 if k.startswith("filter: "))
+    print(f"[{label}]   {'filter (all)':<26} {stages['filter (all)']:9.3f}")
+    fail_unless(yuv_md5(frames) == md5_pin,
+                f"{label}: profiled decode md5 differs")
+    return stages
+
+
+def check_frames(recorded, errs: list, label: str) -> None:
+    """The ITX kernel against its plain version on every recorded frame."""
+    import torch
+
+    from vvdec_tpu_torch.ops.cuda.itx import itx_frame_cuda, itx_frame_ref
     for i, rec in enumerate(recorded):
         got = run_frame(itx_frame_cuda, rec, [r.clone() for r in rec["resi"]])
         want = run_frame(itx_frame_ref, rec, [r.clone() for r in rec["resi"]])
         err = max(int((a - b).abs().max()) for a, b in zip(got, want))
         errs.append(err)
-        fail_unless(err == 0, f"itx frame {i} on the main path's inputs: "
-                    f"max |err| {err}")
+        fail_unless(err == 0, f"{label}: itx frame {i} on the path's inputs:"
+                    f" max |err| {err}")
     torch.cuda.synchronize()
-    print(f"[main] itx kernel == plain version on all {len(recorded)} "
-          f"recorded main-path frames")
+    print(f"[{label}] itx kernel == plain version on all {len(recorded)} "
+          f"recorded frames")
 
-    # per frame: the kernel's and the plain version's device time
-    # (torch.profiler); the wrapper's and the plain version's stream time,
-    # which adds the host's cost (CUDA events); the bounds
+
+def run_frame(fn, rec, resi):
+    import torch
+
+    from vvdec_tpu_torch.ops.cuda.itx import matrix_pool
+    return fn(rec["coef"], resi, rec["table"],
+              matrix_pool(torch.device("cuda")), n_tasks=rec["n_tasks"],
+              bit_depth=rec["bit_depth"])
+
+
+def frame_times(recorded, n_frames: int) -> dict:
+    """Per frame: the kernel's and the plain version's device time
+    (torch.profiler); the wrapper's and the plain version's stream time,
+    which adds the host's cost (CUDA events); the bounds."""
+    from vvdec_tpu_torch.ops.cuda.itx import (itx_frame_cuda, itx_frame_ref,
+                                              table_rows)
+    rows = [table_rows(r["table"], r["n_tasks"]) for r in recorded]
     scratch = [[r.clone() for r in rec["resi"]] for rec in recorded]
 
     def run_kernel():
@@ -401,49 +465,91 @@ def phase_main_path(errs: list) -> dict:
     work = [sum(v) / n_frames for v in zip(*map(frame_work, rows))]
     b_ms, by = bound_ms(work[0], work[1])
     b1_ms, by1 = bound_ms(work[2], work[3], PEAK_F32_OPS_PER_S)
-    print(f"[main] itx per frame: {launches / n_frames:.2f} launches; device "
-          f"time kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
-          f"{b_ms:.6f} ms ({by}; int32 levels at the float32 peak: "
-          f"{b1_ms:.6f} ms, {by1}); stream time of the calls: wrapper "
-          f"{kc_ms:.4f} ms, plain {pc_ms:.4f} ms")
-    shapes = phase_shape_groups(recorded, rows, pool, n_frames)
-    # stage split: the profiler synchronises the device at the end of
-    # each device stage, so each stage's time includes its device work
-    profiler.reset()
-    profiler.enabled = True
-    try:
-        t0 = time.perf_counter()
-        frames = decode_annexb(stream)
-        torch.cuda.synchronize()
-        dt_prof = time.perf_counter() - t0
-    finally:
-        profiler.enabled = False
-    stages = {k: v / n_frames * 1e3 for k, v in profiler.totals.items()}
-    print(f"[main] profiled decode {dt_prof:.3f} s; stage ms per frame "
-          f"(synchronised):")
-    for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
-        print(f"[main]   {k:<26} {v:9.3f}")
-    fail_unless(hashlib.md5(b"".join(
-        p.astype("<u2", copy=False).tobytes() for f in frames for p in f))
-        .hexdigest() == HEADLINE_MD5, "profiled decode md5 differs")
-    units, steps = wavefront_schedule(stream)
-    print(f"[main] intra wavefront: {units / n_frames:.1f} units and "
-          f"{steps / n_frames:.1f} steps per frame, "
-          f"{stages.get('intra', 0.0) * n_frames / max(steps, 1):.3f} ms "
-          f"per step")
-    return dict(fps=len(frames) / dt, decode_s=dt, launches=launches,
-                launches_per_frame=launches / n_frames, md5=md5,
+    return dict(rows=rows, itx_ms=k_ms, itx_plain_ms=p_ms, itx_call_ms=kc_ms,
+                itx_plain_call_ms=pc_ms, itx_bound_ms=b_ms, itx_bound_by=by,
+                itx_bound_int32_f32_ms=b1_ms, itx_bound_int32_f32_by=by1)
+
+
+def phase_main_path(errs: list) -> dict:
+    from vvdec_tpu_torch.streams import (HEADLINE_MD5, HEADLINE_STREAM_KW,
+                                         headline_stream)
+
+    t0 = time.perf_counter()
+    stream = headline_stream()
+    n_frames = HEADLINE_STREAM_KW["n_frames"]
+    print(f"[main] headline stream {HEADLINE_STREAM_KW['width']}x"
+          f"{HEADLINE_STREAM_KW['height']} x {n_frames} frames, "
+          f"{len(stream)} bytes, made in {time.perf_counter() - t0:.1f} s")
+
+    # warm-up decode; it also records the kernel's inputs as the main
+    # path gives them and counts the TUs of the PyTorch residual paths
+    census = {"transform skip": 0, "lfnst": 0, "scaling list": 0}
+    recorded = recording_decode(stream, "main", census)
+    fail_unless(len(recorded) == n_frames, f"the warm-up decode made "
+                f"{len(recorded)} itx_frame_cuda calls for {n_frames} "
+                f"frames")
+    res = timed_decode(stream, n_frames, HEADLINE_MD5, "main")
+    check_frames(recorded, errs, "main")
+    times = frame_times(recorded, n_frames)
+    rows = times.pop("rows")
+    print(f"[main] TUs per frame: kernel {sum(map(len, rows)) / n_frames:.1f}"
+          f" ({sum(r['n_tasks'] for r in recorded) / n_frames:.1f} blocks); "
+          + "; ".join(f"{k} {v / n_frames:.1f}" for k, v in census.items()))
+    print(f"[main] itx per frame: {res['launches'] / n_frames:.2f} launches; "
+          f"device time kernel {times['itx_ms']:.4f} ms, plain "
+          f"{times['itx_plain_ms']:.4f} ms; bound {times['itx_bound_ms']:.6f} "
+          f"ms ({times['itx_bound_by']}; int32 levels at the float32 peak: "
+          f"{times['itx_bound_int32_f32_ms']:.6f} ms, "
+          f"{times['itx_bound_int32_f32_by']}); stream time of the calls: "
+          f"wrapper {times['itx_call_ms']:.4f} ms, plain "
+          f"{times['itx_plain_call_ms']:.4f} ms")
+    shapes = phase_shape_groups(recorded, rows, n_frames)
+    stages = profiled_decode(stream, n_frames, HEADLINE_MD5, "main")
+    return dict(res, launches_per_frame=res["launches"] / n_frames,
                 census_per_frame=dict(
                     kernel=sum(map(len, rows)) / n_frames,
                     **{k: v / n_frames for k, v in census.items()}),
-                itx_ms=k_ms, itx_plain_ms=p_ms, itx_call_ms=kc_ms,
-                itx_plain_call_ms=pc_ms, itx_bound_ms=b_ms, itx_bound_by=by,
-                itx_bound_int32_f32_ms=b1_ms, shapes=shapes,
-                stages_ms_per_frame=stages, intra_units=units / n_frames,
-                intra_steps=steps / n_frames)
+                **times, shapes=shapes, stages_ms_per_frame=stages,
+                **wavefront_schedule(stream, n_frames, stages, "main"))
 
 
-def phase_shape_groups(recorded, rows, pool, n_frames) -> list:
+def phase_tool_set(errs: list) -> dict:
+    """The tool-rich, SAO/ALF and LMCS streams: each decoded as the
+    headline is, its ITX inputs held to the plain version; the ITX
+    kernel's per-frame times on the tool-rich stream's frames."""
+    from vvdec_tpu_torch.streams import STREAMS
+    out = {}
+    for name in ("tool-rich", "SAO/ALF", "LMCS"):
+        builder, n_frames, md5_pin = STREAMS[name]
+        t0 = time.perf_counter()
+        stream = builder()
+        print(f"[{name}] stream 832x480 x {n_frames} frames, {len(stream)} "
+              f"bytes, made in {time.perf_counter() - t0:.1f} s")
+        recorded = recording_decode(stream, name)
+        fail_unless(len(recorded) == n_frames, f"{name}: the warm-up decode "
+                    f"made {len(recorded)} itx_frame_cuda calls for "
+                    f"{n_frames} frames")
+        res = timed_decode(stream, n_frames, md5_pin, name)
+        check_frames(recorded, errs, name)
+        if name == "tool-rich":
+            times = frame_times(recorded, n_frames)
+            rows = times.pop("rows")
+            tus = sum(map(len, rows)) / n_frames
+            res.update(times, kernel_tus_per_frame=tus)
+            print(f"[{name}] itx per frame: {tus:.1f} kernel TUs; device "
+                  f"time kernel {times['itx_ms']:.4f} ms, "
+                  f"plain {times['itx_plain_ms']:.4f} ms; bound "
+                  f"{times['itx_bound_ms']:.6f} ms ({times['itx_bound_by']}); "
+                  f"stream time of the calls: wrapper "
+                  f"{times['itx_call_ms']:.4f} ms")
+        stages = profiled_decode(stream, n_frames, md5_pin, name)
+        res.update(stages_ms_per_frame=stages,
+                   **wavefront_schedule(stream, n_frames, stages, name))
+        out[name] = res
+    return out
+
+
+def phase_shape_groups(recorded, rows, n_frames) -> list:
     """Per TU shape, per frame: the main path's recorded TUs run as
     one-group itx_batch_cuda launches (one per frame, shape and matrix
     pair), timed as in the first port's per-group table: launches, TUs,
@@ -452,8 +558,10 @@ def phase_shape_groups(recorded, rows, pool, n_frames) -> list:
     import numpy as np
     import torch
 
-    from vvdec_tpu_torch.ops.cuda.itx import itx_batch_cuda, itx_batch_ref
+    from vvdec_tpu_torch.ops.cuda.itx import (itx_batch_cuda, itx_batch_ref,
+                                              matrix_pool)
     from vvdec_tpu_torch.ops.frame_device import _extract_fn
+    pool = matrix_pool(torch.device("cuda"))
     batches: dict = {}
     for rec, r in zip(recorded, rows):
         keys, inv = np.unique(r[:, [0, 3, 4, 5, 6]], axis=0,
@@ -509,10 +617,11 @@ def phase_shape_groups(recorded, rows, pool, n_frames) -> list:
     return out
 
 
-def wavefront_schedule(stream: bytes) -> tuple[int, int]:
-    """(intra units, wavefront steps) of the whole stream, from the
+def wavefront_schedule(stream: bytes, n_frames: int, stages: dict,
+                       label: str) -> dict:
+    """Intra units and wavefront steps per frame of the stream, from the
     port's host planner (WAVEFRONT_K units per step, as run_intra_scan
-    uses)."""
+    uses), and the profiled intra stage's ms per step."""
     from vvdec_tpu_torch.decoder import parse_annexb
     from vvdec_tpu_torch.ops.intra_device import (WAVEFRONT_K,
                                                   build_intra_descriptors,
@@ -525,7 +634,11 @@ def wavefront_schedule(stream: bytes) -> tuple[int, int]:
         lvl = compute_unit_levels(desc, f.cs.sps.chroma_format_idc)
         units += desc.shape[0]
         steps += build_wavefront_batches(desc, lvl, WAVEFRONT_K).shape[0]
-    return units, steps
+    per_step = stages.get("intra", 0.0) * n_frames / max(steps, 1)
+    print(f"[{label}] intra wavefront: {units / n_frames:.1f} units and "
+          f"{steps / n_frames:.1f} steps per frame, {per_step:.3f} ms per "
+          f"step")
+    return dict(intra_units=units / n_frames, intra_steps=steps / n_frames)
 
 
 def phase_device_busy() -> dict:
@@ -592,28 +705,40 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    t_run = time.perf_counter()
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        print(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s "
+              f"(run so far {time.perf_counter() - t_run:.1f} s)")
+        return out
+
     try:
-        card = phase_card()
-        phase_build()
+        card = timed("card", phase_card)
+        timed("build", phase_build)
         errs: list = []
-        phase_kernel_vs_plain(errs)
-        main_path = phase_main_path(errs)
-        main_path["profile"] = phase_device_busy()
+        timed("kernel", phase_kernel_vs_plain, errs)
+        main_path = timed("main", phase_main_path, errs)
+        tool_set = timed("tool set", phase_tool_set, errs)
+        main_path["profile"] = timed("profile", phase_device_busy)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    launches = main_path["launches"] + sum(r["launches"]
+                                           for r in tool_set.values())
     kernels = [dict(
         name="itx_frame", route="cuda", source="vvdec_tpu_torch/csrc/itx.cu",
         replaces="vvdec_tpu/ops/pallas/itx.py:96",
-        launches=main_path["launches"], max_abs_err=max(errs),
+        launches=launches, max_abs_err=max(errs),
         ms=main_path["itx_ms"], plain_ms=main_path["itx_plain_ms"],
         bound_ms=main_path["itx_bound_ms"],
         bound_by=main_path["itx_bound_by"], library_ms=None,
         call_ms=main_path["itx_call_ms"])]
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(dict(card=card, kernels=kernels, main_path=main_path),
-                      f, indent=1)
+            json.dump(dict(card=card, kernels=kernels, main_path=main_path,
+                           tool_set=tool_set), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

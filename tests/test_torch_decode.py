@@ -2,9 +2,12 @@
 
 Tolerance: bit-equal.  vvdec_tpu_torch.decoder.decode_annexb(s,
 device="cpu") is held to the JAX package's host golden decode (cheap)
-on the intra streams of tests/test_frame_device.py, and once to its
-device pipeline (`use_jax=True`).  Pictures outside the port's tool set
-raise NotImplementedError naming the reason; there is no fallback.
+on the intra streams of tests/test_frame_device.py (planar, DC and
+angular; MIP, CCLM, intra LMCS with and without chroma residual scaling;
+SAO; and tests/test_device_pipeline.py's ALF + CC-ALF stream), and to
+its device pipeline (`use_jax=True`) on two of them.  Pictures outside
+the port's tool set raise NotImplementedError naming the reason; there
+is no fallback.
 """
 
 import hashlib
@@ -72,8 +75,81 @@ def test_port_matches_jax_device_pipeline():
     _assert_equal(ref(s, use_jax=True), decode_annexb(s, device="cpu"))
 
 
-def _rejected_streams():
+def _lmcs(seed, chroma_scale, sps_kw=None, dec_kw=None, wh=tfd.WH):
+    from tests.test_lmcs import _lmcs_stream
+    return _lmcs_stream(seed, 2, 2, sps_kw or {},
+                        dec_kw or dict(split_prob=0.5, density=0.4),
+                        chroma_scale, ctu=32, wh=wh)
+
+
+def _gen(**kw):
+    return generate_stream(width=tfd.WH[0], height=tfd.WH[1], qp=30,
+                           **kw)[0]
+
+
+def _alf_ccalf():
     from tests.test_alf import _alf_stream
+    return _alf_stream(2, 2, 2, {}, dict(split_prob=0.4, jccr_prob=0.2),
+                       n_aps=3)
+
+
+# the intra tool streams of tests/test_frame_device.py (TestFrameDevice,
+# TestFrameDeviceLmcs, TestJccrDevice) and tests/test_device_pipeline.py
+TOOLS = {
+    "mip": lambda: _gen(ctu=32, n_frames=2, seed=13,
+                        sps_kw=dict(mip_enabled=True),
+                        dec_kw=dict(split_prob=0.4, density=0.3,
+                                    mip_prob=0.9)),
+    "mip_large_blocks": lambda: _gen(ctu=64, n_frames=2, seed=17,
+                                     sps_kw=dict(mip_enabled=True),
+                                     dec_kw=dict(split_prob=0.15,
+                                                 density=0.3, mip_prob=1.0)),
+    "cclm": lambda: _gen(ctu=32, n_frames=2, seed=51,
+                         sps_kw=dict(cclm_enabled=True),
+                         dec_kw=dict(split_prob=0.4, density=0.3)),
+    "cclm_dual_tree_422": lambda: _gen(
+        ctu=32, n_frames=2, seed=53,
+        sps_kw=dict(chroma_format=2, cclm_enabled=True, dual_tree_intra=True,
+                    min_qt_size=[8, 8, 8], max_mtt_depth=[2, 2, 2],
+                    max_bt_size=[32, 32, 32], max_tt_size=[32, 32, 32]),
+        dec_kw=dict(split_prob=0.4, density=0.3)),
+    "sao": lambda: _gen(ctu=32, n_frames=2, seed=12,
+                        sps_kw=dict(sao_enabled=True),
+                        sh_kw=dict(sao_enabled_luma=True,
+                                   sao_enabled_chroma=True),
+                        dec_kw=dict(split_prob=0.4, density=0.3,
+                                    sao_prob=0.6)),
+    "lmcs_intra_31": lambda: _lmcs(31, False),
+    "lmcs_intra_32": lambda: _lmcs(32, False),
+    "lmcs_chroma_scaling_33": lambda: _lmcs(33, True),
+    "lmcs_chroma_scaling_34": lambda: _lmcs(34, True),
+    "jccr_with_lmcs": lambda: _lmcs(
+        3, True, dict(joint_cbcr_enabled=True),
+        dict(split_prob=0.5, jccr_prob=0.5, density=0.4), wh=(96, 64)),
+    "alf_ccalf": lambda: _alf_ccalf(),
+    "lmcs_mip_cclm_sao": lambda: _lmcs(
+        36, True, dict(mip_enabled=True, cclm_enabled=True, sao_enabled=True),
+        dict(split_prob=0.5, density=0.4, mip_prob=0.3, sao_prob=0.5)),
+}
+
+
+@pytest.mark.parametrize("name", list(TOOLS))
+def test_tool_stream_matches_host_golden(name):
+    from vvdec_tpu.decoder import decode_annexb as golden
+    from vvdec_tpu_torch.decoder import decode_annexb
+    s = TOOLS[name]()
+    _assert_equal(golden(s), decode_annexb(s, device="cpu"))
+
+
+@pytest.mark.parametrize("name", ["alf_ccalf", "lmcs_chroma_scaling_33"])
+def test_tool_stream_matches_jax_device_pipeline(name):
+    from vvdec_tpu.decoder import decode_annexb as ref
+    from vvdec_tpu_torch.decoder import decode_annexb
+    s = TOOLS[name]()
+    _assert_equal(ref(s, use_jax=True), decode_annexb(s, device="cpu"))
+
+
+def _rejected_streams():
     from tests.test_lmcs import _lmcs_stream
 
     def gen(**kw):
@@ -83,31 +159,20 @@ def _rejected_streams():
 
     ikw = tfd.TestFrameDeviceInter.IKW
     return {
-        "filter_sao": lambda: gen(
-            seed=12, sps_kw=dict(sao_enabled=True),
-            sh_kw=dict(sao_enabled_luma=True, sao_enabled_chroma=True),
-            dec_kw=dict(split_prob=0.4, density=0.3, sao_prob=0.6)),
-        "filter_alf": lambda: _alf_stream(0, 1, 2, {}, dict(split_prob=0.4),
-                                          n_aps=1, cc=False),
-        "mip": lambda: gen(seed=13, sps_kw=dict(mip_enabled=True),
-                           dec_kw=dict(split_prob=0.4, density=0.3,
-                                       mip_prob=0.9)),
-        "cclm": lambda: gen(seed=51, sps_kw=dict(cclm_enabled=True),
-                            dec_kw=dict(split_prob=0.4, density=0.3)),
         "isp": lambda: gen(seed=18, sps_kw=dict(isp_enabled=True),
                            dec_kw=dict(split_prob=0.4, density=0.3,
                                        isp_prob=0.8)),
-        "lmcs": lambda: _lmcs_stream(31, 1, 2, {},
-                                     dict(split_prob=0.5, density=0.4),
-                                     False, ctu=32, wh=tfd.WH),
         "inter": lambda: tfd._ld_stream(2, 31, ikw),
         "ciip": lambda: tfd._ld_stream(2, 39, dict(ikw, ciip_prob=0.9),
                                    sps_kw=dict(ciip_enabled=True)),
+        # TestFrameDeviceLmcs::test_lmcs_inter_falls_back_bit_exact
+        "lmcs_inter": lambda: _lmcs_stream(
+            35, 3, 0, {}, dict(split_prob=0.5, density=0.3, inter_prob=0.8),
+            True, ctu=32, wh=tfd.WH),
     }
 
 
-@pytest.mark.parametrize("reason", ["filter_sao", "filter_alf", "mip",
-                                    "cclm", "isp", "lmcs", "inter", "ciip"])
+@pytest.mark.parametrize("reason", ["isp", "inter", "ciip", "lmcs_inter"])
 def test_unported_tools_raise(reason):
     """A picture the port cannot run raises, naming the reason; the
     reference's census names the same picture as a host fallback."""

@@ -200,9 +200,9 @@ def test_gather_refs_matches(frames):
 def test_intra_wavefront_matches(frames, K):
     """_intra_wavefront_fn on identical (planes, resis, batches): the
     reference's residual planes, planes filled with seeded noise (so
-    every reference sample read is visible in the output).  The
-    reference also takes an LMCS table (zeros here); the port has none,
-    as it rejects LMCS pictures."""
+    every reference sample read is visible in the output), and an LMCS
+    table of zeros, which has_lmcs=False leaves unread in both; the LMCS
+    scan is held to the reference in tests/test_torch_intra_tools.py."""
     import vvdec_tpu.ops.intra_device as R
     import vvdec_tpu_torch.ops.intra_device as T
     from vvdec_tpu_torch.state import to_numpy, to_torch
@@ -217,8 +217,9 @@ def test_intra_wavefront_matches(frames, K):
         lm = np.zeros(R.LM_LEN, dtype=np.int32)
         want = _np(R._intra_wavefront_fn(*key, K, False)(
             *_jax((planes, tuple(resi), batches, lm))))
-        got = to_numpy(T._intra_wavefront_fn(*key, K)(
-            to_torch(planes, "cpu"), to_torch(tuple(resi), "cpu"), batches))
+        got = to_numpy(T._intra_wavefront_fn(*key, K, False)(
+            to_torch(planes, "cpu"), to_torch(tuple(resi), "cpu"), batches,
+            to_torch(lm, "cpu")))
         for a, b in zip(got, want):
             assert np.array_equal(a, b)
 

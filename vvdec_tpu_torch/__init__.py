@@ -6,9 +6,10 @@ Main10 decoder, for one NVIDIA H100.
   derivation.  It is a vendored copy of vvdec_tpu's host plane (see
   `_vendored.py`), so the port runs without the JAX package.
 - **Device plane** (PyTorch on CUDA): dequant + inverse transform (a
-  hand-written Hopper kernel, `csrc/itx.cu`), the intra wavefront scan,
-  the dense deblocking filters and the 10-bit output pack, all in device
-  memory.  Every stage is held bit for bit to the JAX reference.
+  hand-written Hopper kernel, `csrc/itx.cu`), the intra wavefront scan
+  (planar, DC, angular, MIP, CCLM; intra LMCS), the in-loop filters
+  (deblocking, SAO, ALF, CC-ALF) and the 10-bit output pack, all in
+  device memory.  Every stage is held bit for bit to the JAX reference.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`.
 """

@@ -4,10 +4,12 @@ Port of the intra path of vvdec_tpu/ops/frame_device.py: dequant +
 inverse transform (the ITX stage: every plain TU of the frame in one
 launch of the hand-written kernel on CUDA, transform-skip, LFNST and
 scaling-list TUs batched per shape in PyTorch), the intra wavefront scan
-(ops/intra_device.py), then the deblocking filter chain + 10-bit output
-packing (ops/device_pipeline.py), all in device memory.  The host
-uploads one int16 coefficient plane per component and a few descriptor
-arrays per frame and reads back one packed buffer.
+(ops/intra_device.py; with LMCS, in the reshaped domain, followed by the
+inverse luma map), then the in-loop filter chain (deblocking, SAO, ALF,
+CC-ALF) + 10-bit output packing (ops/device_pipeline.py), all in device
+memory.  The host uploads one int16 coefficient plane per component and
+a few descriptor and parameter arrays per frame and reads back one
+packed buffer.
 
 Differences from the JAX stage, none of which changes a decoded sample:
 the plain TUs run in one launch instead of one per shape group, the
@@ -38,22 +40,25 @@ from vvdec_tpu_torch.ops.device_pipeline import (
 )
 from vvdec_tpu_torch.ops.intra_device import (
     PB,
+    _win_start,
     build_intra_descriptors,
+    build_lmcs_params,
+    lmcs_inv_map,
     run_intra_scan,
     scan_key,
 )
 
-# descriptor mode classes the port does not run yet, by name
-_UNPORTED_MODE_CLASSES = ((3, "mip"), (4, "cclm"), (5, "ciip"))
+# the descriptor mode class the port does not run yet: the CIIP blend
+_CIIP = 5
 
 
 def _tile_index(ys, xs, h: int, w: int, dims):
     """Row / column index grids [n, h, w] of n (h, w) tiles at (ys, xs),
-    starts clamped so each tile lies inside `dims`, as
-    lax.dynamic_slice / dynamic_update_slice clamp them."""
+    starts placed as lax.dynamic_slice / dynamic_update_slice place
+    them (`_win_start`)."""
     dev = ys.device
-    y0 = torch.clamp(ys.long(), 0, dims[0] - h)
-    x0 = torch.clamp(xs.long(), 0, dims[1] - w)
+    y0 = _win_start(ys.long(), h, dims[0])
+    x0 = _win_start(xs.long(), w, dims[1])
     iy = y0[:, None, None] + torch.arange(h, device=dev)[None, :, None]
     ix = x0[:, None, None] + torch.arange(w, device=dev)[None, None, :]
     return iy, ix
@@ -267,23 +272,22 @@ def itx_residual_device(cs, device=None) -> list:
 def plan_frame_device(cs):
     """(intra descriptor array, None) when this picture can run the
     port's device pipeline, else (None, reason).  The reasons are the
-    reference's gates, then the tools this port does not carry yet:
-    filter_sao / filter_alf / filter_ccalf, inter (an inter slice or a
-    non-intra CU), lmcs, mip, cclm and ciip."""
+    reference's gates (filter_*, the descriptor builder's, lmcs_inter),
+    then the tools this port does not carry yet: ciip, and inter (an
+    inter slice or a non-intra CU)."""
     reason = device_filter_reject_reason(cs)
     if reason is not None:
         return None, f"filter_{reason}"
     desc, reason = build_intra_descriptors(cs)
     if reason is not None:
         return None, reason
-    for cls, name in _UNPORTED_MODE_CLASSES:
-        if (desc[:, 7] == cls).any():
-            return None, name
+    if _lmcs_on(cs) and any(cu.pred_mode != MODE_INTRA for cu in cs.cus):
+        return None, "lmcs_inter"
+    if (desc[:, 7] == _CIIP).any():
+        return None, "ciip"
     if any(not s.is_intra for s in cs.shs) \
             or any(cu.pred_mode != MODE_INTRA for cu in cs.cus):
         return None, "inter"
-    if _lmcs_on(cs):
-        return None, "lmcs"
     return desc, None
 
 
@@ -292,15 +296,27 @@ def reconstruct_frame_device(cs, desc, device=None):
     accepted, on `device` (default CUDA); returns the PendingFrame with
     device-resident output planes and the packed readback in flight."""
     dev = resolve_device(device)
+    bd = cs.sps.bit_depth
     with timed_stage("itx", dev):
         resi = itx_residual_device(cs, dev)
     with timed_stage("intra", dev):
+        lmcs = None
+        if _lmcs_on(cs):
+            from vvdec_tpu_torch.frame.lmcs_np import Reshaper
+            rs = Reshaper(cs.lmcs_info, bd, bool(cs.ph.chroma_residual_scale))
+            # one upload of the LMCS table per frame
+            lmcs = torch.as_tensor(build_lmcs_params(rs, cs), device=dev)
         recon = [torch.zeros_like(r) for r in resi]
-        recon = run_intra_scan(recon, resi, desc, scan_key(cs))
+        recon = run_intra_scan(recon, resi, desc, scan_key(cs), lmcs)
     planes = []
     for comp in range(cs.num_comp):
         w_c, h_c = cs.comp_size[comp]
         planes.append(recon[comp][:h_c, :w_c])
+    if lmcs is not None:
+        # the RSP stage: inverse-map luma back to the original domain
+        # before the in-loop filters (Reshape::rspCtuBcw, Reshape.cpp:377)
+        with timed_stage("lmcs inverse map", dev):
+            planes[0] = lmcs_inv_map(planes[0], lmcs, bd)
     return filter_frame_device(cs, planes)
 
 

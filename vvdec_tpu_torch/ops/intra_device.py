@@ -3,10 +3,12 @@ over dependency levels, each step reconstructing up to K independent
 prediction units at once.
 
 Port of vvdec_tpu/ops/intra_device.py (the wavefront path, mode classes
-0-2: planar, DC and angular with PDPC, reference smoothing and the
-cubic / gauss / chroma interpolation filters).  MIP, CCLM, CIIP, LMCS
-and the sequential debug scan are not ported yet; plan_frame_device
-rejects pictures that need them.
+0-4: planar, DC and angular with PDPC, reference smoothing and the
+cubic / gauss / chroma interpolation filters; MIP; CCLM off the luma
+plane as the earlier steps left it; intra LMCS: the VPDU chroma
+residual scale and the inverse luma map).  CIIP (class 5) and the
+sequential debug scan are not ported yet; plan_frame_device rejects
+pictures that need them.
 
 The reference-sample geometry (availability, substitution, replication;
 xFillReferenceSamples, IntraPrediction.cpp:1161) is value-independent,
@@ -21,7 +23,9 @@ numpy batches (no device->host sync per step); its `vmap` over K becomes
 a leading batch dimension; its one-hot float matmul gathers become
 integer indexing that returns 0 outside the source, as the one-hot
 product did; `lax.dynamic_slice` / `dynamic_update_slice` windows keep
-their start clamping (`_win_start`).
+their start clamping (`_win_start`), and plain JAX gathers keep theirs
+(`_jidx`: a negative index wraps once, then the index is clamped).
+MIP's int32 matrix product becomes a multiply-and-sum.
 
 Bit-exact parity targets: IntraPrediction::predIntraAng
 (IntraPrediction.cpp:471), xFillReferenceSamples (:1161),
@@ -41,7 +45,11 @@ from vvdec_tpu_torch.ops.tables import (
     GAUSS_FILTER,
     INTRA_FILTER_THRESH,
     INV_ANG_TABLE,
+    MIP_4x4,
+    MIP_8x8,
+    MIP_16x16,
 )
+from vvdec_tpu_torch.utils.trace import profiler
 
 B = 64     # max prediction block side (the padded compute tile)
 PB = 64    # plane bottom/right padding (allows 64x64 RMW at any origin)
@@ -50,10 +58,14 @@ D = 33     # descriptor row width
 H_OFF = 64           # refext negative-side extent (max side length)
 RL2 = H_OFF + 128 + B + 4   # refext length: side ext + 2*64 main + taps
 WAVEFRONT_K = 8      # units per wavefront step (the reference's K)
+# profiler stage of a wavefront step, by mode class (host time: the
+# steps are launch-bound, and a per-step device sync would change that)
+STEP_STAGES = ("intra step: planar", "intra step: DC",
+               "intra step: angular", "intra step: MIP", "intra step: CCLM")
 
 # descriptor row layout (int32):
 #  0 comp; 1 x; 2 y; 3 w; 4 h; 5 log2w; 6 log2h;
-#  7 mode_class (0 planar, 1 DC, 2 angular; 3 MIP, 4 CCLM, 5 CIIP are
+#  7 mode_class (0 planar, 1 DC, 2 angular, 3 MIP, 4 CCLM; 5 CIIP is
 #    not ported); 8 filtered ([1 2 1] refs); 9 cbf; 10 avail0;
 #  top fill:  value(i) = plane[ty_a if i < ty_k else ty_b,
 #                              clamp(tx0 + i, txlo, txhi)]
@@ -63,7 +75,13 @@ WAVEFRONT_K = 8      # units per wavefront step (the reference's K)
 #  17 lx_a; 18 lx_b; 19 lx_k; 20 ly0; 21 lylo; 22 lyhi;
 #  23 is_ver; 24 angle (signed); 25 inv_angle;
 #  26 frac_kind (0 integer, 1 cubic, 2 gauss, 3 chroma 2-tap);
-#  27 do_pdpc; 28 valid (0 = padding row); 29-32 LMCS fields
+#  27 do_pdpc; 28 valid (0 = padding row)
+#  LMCS chroma residual scaling (calculateChromaAdjVpduNei):
+#  29 flags: bit0 scale-this-unit, bit1 vpdu-left nb, bit2 vpdu-above nb;
+#  30 x_pos; 31 y_pos (luma coords of the VPDU's top-left CU); 32 rsvd
+#  MIP reuses 24 mode, 25 transpose, 26 size id; CCLM reuses 23
+#  build_left, 24 actual_top, 25 actual_left, 26 above | left << 1
+#  avail, 27 build_above.
 
 
 def _col(d, k):
@@ -72,8 +90,10 @@ def _col(d, k):
 
 
 def _win_start(start, size: int, dim: int):
-    """The start lax.dynamic_slice uses: clamped so the window fits."""
-    return torch.clamp(start, 0, dim - size)
+    """The start lax.dynamic_slice uses: a negative start wraps once (to
+    start + dim), then the start is clamped so the window fits."""
+    return torch.clamp(torch.where(start < 0, start + dim, start), 0,
+                       dim - size)
 
 
 @functools.lru_cache(maxsize=None)
@@ -99,6 +119,120 @@ def _take(vec, idx):
     ok = (flat >= 0) & (flat < n)
     g = torch.gather(vec, 1, flat.clamp(0, n - 1).long())
     return torch.where(ok, g, torch.zeros_like(g)).reshape(idx.shape)
+
+
+def _jidx(idx, n: int):
+    """The index a JAX gather reads for `idx` along an axis of length n:
+    a negative index wraps once, then the index is clamped to [0, n)."""
+    return torch.clamp(torch.where(idx < 0, idx + n, idx), 0, n - 1).long()
+
+
+def _rows(a, idx):
+    """a[k, idx[k, ...]] along dim 1 for in-range idx [K, ...]."""
+    flat = idx.reshape(idx.shape[0], -1).long()
+    return torch.gather(a, 1, flat).reshape(idx.shape)
+
+
+# ======================================================================
+# LMCS (Reshape.cpp: rspCtuBcw inverse map, scaleSignal,
+# calculateChromaAdjVpduNei; host golden frame/lmcs_np.py)
+# ======================================================================
+# lmcs parameter vector layout (int32):
+#  [0:17]  reshape_pivot (17)
+#  [17:33] input_pivot (16)
+#  [33:49] inv_scale (16)
+#  [49:65] chroma_adj_lut (16)
+#  [65] min_bin; [66] max_bin; [67] pic_h; [68] pic_w
+LM_LEN = 69
+
+
+def build_lmcs_params(reshaper, cs) -> np.ndarray:
+    lm = np.zeros(LM_LEN, dtype=np.int32)
+    lm[0:17] = reshaper.reshape_pivot
+    lm[17:33] = reshaper.input_pivot[:16]
+    lm[33:49] = reshaper.inv_scale
+    lm[49:65] = reshaper.chroma_adj_lut
+    lm[65] = reshaper.min_bin
+    lm[66] = reshaper.max_bin
+    lm[67] = cs.h
+    lm[68] = cs.w
+    return lm
+
+
+def _sel16(lm, base: int, idx):
+    """lm[base + idx] over the 17-entry (base 0) or 16-entry table at
+    base; 0 where idx falls outside the table, as the reference's masked
+    sum gives."""
+    n = 17 if base == 0 else 16
+    v = lm[base + idx.clamp(0, n - 1).long()]
+    return torch.where((idx >= 0) & (idx < n), v, torch.zeros_like(v))
+
+
+def _pwl_idx_inv_dev(v, lm):
+    """getPWLIdxInv: min_bin + the count of pivots in [min_bin, max_bin]
+    that v reaches, clipped to 15."""
+    i = torch.arange(16, device=v.device, dtype=torch.int32)
+    hit = (i >= lm[65]) & (i <= lm[66]) & (v[..., None] >= lm[1:17])
+    return torch.clamp(lm[65] + hit.sum(-1, dtype=torch.int32), max=15)
+
+
+def _scale_signal_dev(r, scale, bd: int):
+    """AreaBuf::scaleSignal: sign-symmetric fixed-point residual scale."""
+    max_abs = (1 << bd) - 1
+    rc = torch.clamp(r, -max_abs - 1, max_abs)
+    sign = 1 - 2 * (rc < 0).to(torch.int32)
+    val = sign * ((sign * rc * scale + (1 << 10)) >> 11)
+    return torch.clamp(val, -32768, 32767)
+
+
+def _chroma_scale_dev(luma, d, lm, bd: int, num_nb: int):
+    """calculateChromaAdjVpduNei for K units: the average of the luma
+    (reshaped domain) left of and above each unit's VPDU top-left CU,
+    read through windows clamped as lax.dynamic_slice clamps them, then
+    the chroma scale of its bin.  Returns [K] int32."""
+    hh, ww = luma.shape
+    xpos, ypos = d[:, 30, None], d[:, 31, None]
+    left_ok = (d[:, 29] & 2) != 0
+    above_ok = (d[:, 29] & 4) != 0
+    log_nb = num_nb.bit_length() - 1
+    jv = torch.arange(num_nb, device=luma.device,
+                      dtype=torch.int32)[None, :]
+
+    def weights(lim):
+        return torch.where(jv < lim - 1, 1,
+                           torch.where(jv == lim - 1, num_nb - lim + 1, 0))
+
+    r0 = _win_start(ypos, num_nb, hh)
+    c0 = _win_start(torch.clamp(xpos - 1, min=0), 1, ww)
+    colw = luma[(r0 + jv).long(), c0.long()]
+    sum_l = (colw * weights(torch.clamp(lm[67] - ypos, 1, num_nb))) \
+        .sum(-1, dtype=torch.int32)
+    r1 = _win_start(torch.clamp(ypos - 1, min=0), 1, hh)
+    c1 = _win_start(xpos, num_nb, ww)
+    roww = luma[r1.long(), (c1 + jv).long()]
+    sum_t = (roww * weights(torch.clamp(lm[68] - xpos, 1, num_nb))) \
+        .sum(-1, dtype=torch.int32)
+    zero = torch.zeros_like(sum_l)
+    rec_sum = torch.where(left_ok, sum_l, zero) \
+        + torch.where(above_ok, sum_t, zero)
+    pelnum = left_ok.to(torch.int32) + above_ok.to(torch.int32)
+    v1 = (rec_sum + (1 << (log_nb - 1))) >> log_nb
+    v2 = (rec_sum + (1 << log_nb)) >> (log_nb + 1)
+    luma_val = torch.where(pelnum == 1, v1,
+                           torch.where(pelnum == 2, v2,
+                                       torch.full_like(v1, 1 << (bd - 1))))
+    return _sel16(lm, 49, _pwl_idx_inv_dev(luma_val, lm))
+
+
+def lmcs_inv_map(plane, lm, bd: int):
+    """Inverse luma mapping (the RSP stage): piecewise-linear evaluation
+    bit-equal to the host's inv_lut (built with the same formula)."""
+    idx = _pwl_idx_inv_dev(plane, lm)
+    piv = _sel16(lm, 0, idx)
+    ipiv = _sel16(lm, 17, idx)
+    isc = _sel16(lm, 33, idx)
+    out = ipiv + ((isc * (plane - piv) + (1 << 10)) >> 11)
+    return torch.clamp(out, 0, (1 << bd) - 1)
 
 
 def _gather_refs(P, d, bd: int):
@@ -306,6 +440,281 @@ def left_of(side):
     return side[:, 1:B + 1, None]
 
 
+@functools.lru_cache(maxsize=None)
+def _mip_matrices(device):
+    """The three MIP matrix sets on `device`, made once."""
+    return tuple(torch.as_tensor(m, dtype=torch.int32, device=device)
+                 for m in (MIP_4x4, MIP_8x8, MIP_16x16))
+
+
+def _pred_mip(top, left, d, bd: int, sids=(0, 1, 2)):
+    """Matrix intra prediction of K units: Haar boundary downsample, the
+    rebased matrix product of each unit's size class (d[26]) and mode
+    (d[24]), transpose (d[25]), linear upsampling.  Parity:
+    Mip::PredictorMIP (MatrixIntraPrediction.cpp:60) / recon_np.pred_mip.
+    `sids`, when the caller knows them, limits the size classes whose
+    products are evaluated."""
+    dev = top.device
+    K = top.shape[0]
+    w, h, l2w, l2h = (d[:, k, None] for k in (3, 4, 5, 6))     # [K, 1]
+    mode = d[:, 24]
+    transpose = (d[:, 25] == 1)[:, None, None]
+    sid = d[:, 26, None]
+    pel_max = (1 << bd) - 1
+    ar = torch.arange(B, device=dev, dtype=torch.int32)
+    # Haar downsample to bdry samples per side: group sums over
+    # i >> lgf == g, i < side (lgf == 0 copies)
+    log2bdry = 2 - (sid == 0).to(torch.int32)
+    bdry = 1 << log2bdry
+    g4 = torch.arange(4, device=dev, dtype=torch.int32)[None, :, None]
+
+    def reduce(ref, side, l2):
+        lgf = torch.clamp(l2 - log2bdry, min=0)
+        m = ((ar[None, None, :] >> lgf[:, :, None]) == g4) \
+            & (ar[None, None, :] < side[:, :, None])
+        s = torch.where(m, ref[:, None, 1:B + 1], 0).sum(-1, dtype=torch.int32)
+        rnd = (s + (1 << torch.clamp(lgf - 1, min=0))) >> lgf
+        return torch.where(lgf > 0, rnd, s)
+
+    t_red = reduce(top, w, l2w)                                # [K, 4]
+    l_red = reduce(left, h, l2h)
+    k8 = torch.arange(8, device=dev, dtype=torch.int32)[None, :]
+    i_lo = torch.clamp(k8, 0, 3).expand(K, 8)
+    i_hi = torch.clamp(k8 - bdry, 0, 3)
+    lo = k8 < bdry
+    bound = torch.where(lo, _rows(t_red, i_lo), _rows(l_red, i_hi))
+    bound_t = torch.where(lo, _rows(l_red, i_lo), _rows(t_red, i_hi))
+    inp0 = torch.where(transpose[:, 0], bound_t, bound)
+    in_off = inp0[:, :1]
+    first = torch.where(sid < 2, (1 << (bd - 1)) - in_off, 0)
+    inp = torch.where(k8 == 0, first, inp0 - in_off)
+    inp = torch.where(k8 < 2 * bdry, inp, 0)
+    offset = 32 - 32 * inp.sum(-1, keepdim=True, dtype=torch.int32)
+    # the int32 matrix product of each size class, as multiply-and-sum
+    m4, m8, m16 = _mip_matrices(dev)
+    classes = ((m4, 15, slice(0, 4), 4), (m8, 7, slice(0, 8), 4),
+               (m16, 5, slice(1, 8), 8))
+    pred = torch.zeros((K, 8, 8), dtype=torch.int32, device=dev)
+    sid_c = torch.clamp(sid[:, 0], 0, 2)[:, None, None]
+    for s in sids:
+        mats, top_mode, cols, n = classes[s]
+        mat = mats[torch.clamp(mode, 0, top_mode).long()]     # [K, P, I]
+        acc = (mat * inp[:, None, cols]).sum(-1, dtype=torch.int32)
+        o = torch.clamp(((acc + offset) >> 6) + in_off, 0, pel_max)
+        blk = torch.zeros_like(pred)
+        blk[:, :n, :n] = o.view(K, n, n)
+        pred = torch.where(sid_c == s, blk, pred)
+    pred = torch.where(transpose, pred.transpose(1, 2), pred)
+    # linear upsampling (the formula degrades to a copy when up == 1)
+    log2red = 3 - (sid < 2).to(torch.int32)
+    lg_h = torch.clamp(l2w - log2red, min=0)[:, :, None]       # [K, 1, 1]
+    lg_v = torch.clamp(l2h - log2red, min=0)[:, :, None]
+    up_h = 1 << lg_h
+    up_v = 1 << lg_v
+    xs = ar[None, None, :]
+    ys = ar[None, :, None]
+    j = xs >> lg_h                                             # [K, 1, B]
+    rowsel = pred[:, torch.clamp(ar, 0, 7).long(), :]          # [K, B, 8]
+    bh = torch.gather(rowsel, 2, torch.clamp(j, 0, 7).long().expand(K, B, B))
+    pv_in = torch.gather(rowsel, 2,
+                         torch.clamp(j - 1, 0, 7).long().expand(K, B, B))
+    pv0 = _rows(left, torch.clamp((ar[None, :] + 1) * up_v[:, 0], 0, RL - 1))
+    pv = torch.where(j == 0, pv0[:, :, None], pv_in)
+    ro_h = torch.where(lg_h > 0, 1 << torch.clamp(lg_h - 1, min=0), 0)
+    hor = (pv * up_h + ro_h + ((xs & (up_h - 1)) + 1) * (bh - pv)) >> lg_h
+    yv = ys >> lg_v                                            # [K, B, 1]
+    bh2 = torch.gather(hor, 1,
+                       torch.clamp(yv, 0, B - 1).long().expand(K, B, B))
+    pv2_in = torch.gather(hor, 1,
+                          torch.clamp(yv - 1, 0, B - 1).long().expand(K, B, B))
+    pv2 = torch.where(yv == 0, top[:, None, 1:B + 1], pv2_in)
+    ro_v = torch.where(lg_v > 0, 1 << torch.clamp(lg_v - 1, min=0), 0)
+    return (pv2 * up_v + ro_v + ((ys & (up_v - 1)) + 1) * (bh2 - pv2)) >> lg_v
+
+
+_CCLM_DIV = (0, 7, 6, 5, 5, 4, 4, 3, 3, 2, 2, 1, 1, 1, 1, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _cclm_div(device):
+    return torch.tensor(_CCLM_DIV, dtype=torch.int32, device=device)
+
+
+def _pred_cclm(top, left, d, luma, bd: int, cfmt: int, collocated: bool,
+               ctu_log2: int):
+    """Cross-component linear model chroma prediction of K units: 4-point
+    template sampling off the luma plane `luma` ([hh, ww], as the earlier
+    steps left it), the min/max parameter fit, then the dense downsample
+    and linear transform.  Parity: recon_np.pred_cclm
+    (xGetLumaRecPixels/xGetLMParameters/predIntraChromaLM).  Luma reads
+    wrap negative rows and columns once at lh / lw (the plane less its
+    PB padding) and clamp at lh - 1 / lw - 1, as the host golden does;
+    the JAX gather's own wrap and clamp at hh / ww follow (`_jidx`)."""
+    dev = top.device
+    pel_max = (1 << bd) - 1
+    cx, cy = d[:, 1, None], d[:, 2, None]                      # [K, 1]
+    build_above = d[:, 27, None] == 1
+    build_left = d[:, 23, None] == 1
+    actual_top = d[:, 24, None]
+    actual_left = d[:, 25, None]
+    above_avail = (d[:, 26, None] & 1) == 1
+    left_avail = (d[:, 26, None] & 2) == 2
+    sub_w = 2 if cfmt in (1, 2) else 1
+    sub_h = 2 if cfmt == 1 else 1
+    mult, rec2 = sub_w, sub_h
+    stro = 0 if sub_w == 1 else 1
+    hh, ww = luma.shape
+    lh, lw = hh - PB, ww - PB
+    lx, ly = cx * sub_w, cy * sub_h
+    first_row = (ly & ((1 << ctu_log2) - 1)) == 0
+    if cfmt == 2:      # 4:2:2
+        t3 = (2, 1, 1, 2, 2)
+        t5 = (0, 2, 1, 1, 0, 2, 2)
+        t6 = (2, 1, 1, 0, 0, 0, 2, 2)
+    elif cfmt == 3:    # 4:4:4
+        t3 = (1, 0, 0, 0, 0)
+        t5 = (0, 1, 0, 0, 0, 0, 0)
+        t6 = (1, 0, 0, 0, 0, 0, 0, 0)
+    else:              # 4:2:0
+        t3 = (2, 1, 1, 2, 2)
+        t5 = (1, 4, 1, 1, 1, 4, 3)
+        t6 = (2, 1, 1, 2, 1, 1, 4, 3)
+    flat = luma.reshape(-1)
+
+    def lum(r, c):
+        r = _jidx(torch.clamp(torch.where(r < 0, r + lh, r), max=lh - 1), hh)
+        c = _jidx(torch.clamp(torch.where(c < 0, c + lw, c), max=lw - 1), ww)
+        return flat[r * ww + c]
+
+    def taps(coef, points, rnd, shift):
+        """(sum of coef * lum(point) + rnd) >> shift, zero taps skipped."""
+        acc = None
+        for k, (r, c) in zip(coef, points):
+            if k:
+                v = k * lum(r, c)
+                acc = v if acc is None else acc + v
+        return (acc + rnd) >> shift
+
+    def ds_top(i):
+        xx = lx + mult * i
+        left_tap = torch.where((i == 0) & ~build_left, xx, xx - 1)
+        r3 = ly - 1
+        v3 = taps(t3[:3], ((r3, xx), (r3, left_tap), (r3, xx + 1)),
+                  t3[3], t3[4])
+        r = ly - rec2
+        if collocated:
+            vn = taps(t5[:5], ((r - stro, xx), (r, xx), (r, left_tap),
+                               (r, xx + 1), (r + stro, xx)), t5[5], t5[6])
+        else:
+            vn = taps(t6[:6], ((r, xx), (r, left_tap), (r, xx + 1),
+                               (r + stro, xx), (r + stro, left_tap),
+                               (r + stro, xx + 1)), t6[6], t6[7])
+        return torch.where(first_row, v3, vn)
+
+    def ds_left(j):
+        yy = ly + rec2 * j
+        base = lx - 2 - (sub_w - 1)
+        if collocated:
+            top_tap = torch.where((j == 0) & ~build_above, yy, yy - stro)
+            return taps(t5[:5], ((top_tap, base + 1), (yy, base + 1),
+                                 (yy, base), (yy, base + 2),
+                                 (yy + stro, base + 1)), t5[5], t5[6])
+        return taps(t6[:6], ((yy, base + 1), (yy, base), (yy, base + 2),
+                             (yy + stro, base + 1), (yy + stro, base),
+                             (yy + stro, base + 2)), t6[6], t6[7])
+
+    above_is4 = (~left_avail).to(torch.int32)
+    left_is4 = (~above_avail).to(torch.int32)
+    start_t = actual_top >> (2 + above_is4)
+    step_t = torch.clamp(actual_top >> (1 + above_is4), min=1)
+    start_l = actual_left >> (2 + left_is4)
+    step_l = torch.clamp(actual_left >> (1 + left_is4), min=1)
+    cnt_t = torch.where(above_avail,
+                        torch.minimum(actual_top, (1 + above_is4) << 1), 0)
+    cnt_l = torch.where(left_avail,
+                        torch.minimum(actual_left, (1 + left_is4) << 1), 0)
+    k4 = torch.arange(4, device=dev, dtype=torch.int32)[None, :]
+    pos_t = start_t + k4 * step_t                              # [K, 4]
+    pos_l = start_l + torch.clamp(k4 - cnt_t, min=0) * step_l
+    lum_t = ds_top(pos_t)
+    chr_t = _rows(top, torch.clamp(1 + pos_t, 0, RL - 1))
+    lum_l = ds_left(pos_l)
+    chr_l = _rows(left, torch.clamp(1 + pos_l, 0, RL - 1))
+    use_t = k4 < cnt_t
+    use_l = (k4 >= cnt_t) & (k4 < cnt_t + cnt_l)
+    sel_l = torch.where(use_t, lum_t, torch.where(use_l, lum_l, 0))
+    sel_c = torch.where(use_t, chr_t, torch.where(use_l, chr_l, 0))
+    # two samples: duplicate the pair ([1], [0], [1], [0])
+    two = (cnt_t + cnt_l) == 2
+    # (a flip, not a list index: that would be a host->device copy)
+    sel_l = torch.where(two, sel_l[:, :2].flip(1).repeat(1, 2), sel_l)
+    sel_c = torch.where(two, sel_c[:, :2].flip(1).repeat(1, 2), sel_c)
+    # min/max grouping (xGetLMParameters sorting network): min group
+    # (0, 2), max group (1, 3)
+    m0l, m0c, m1l, m1c = sel_l[:, 0:1], sel_c[:, 0:1], sel_l[:, 2:3], \
+        sel_c[:, 2:3]
+    x0l, x0c, x1l, x1c = sel_l[:, 1:2], sel_c[:, 1:2], sel_l[:, 3:4], \
+        sel_c[:, 3:4]
+
+    def swap(cond, a, b):
+        """(a, b) exchanged where cond, as pairs (luma, chroma)."""
+        return (torch.where(cond, b[0], a[0]), torch.where(cond, b[1], a[1]),
+                torch.where(cond, a[0], b[0]), torch.where(cond, a[1], b[1]))
+
+    m0l, m0c, m1l, m1c = swap(m0l > m1l, (m0l, m0c), (m1l, m1c))
+    x0l, x0c, x1l, x1c = swap(x0l > x1l, (x0l, x0c), (x1l, x1c))
+    c_sw = m0l > x1l
+    m0l, m0c, x0l, x0c = swap(c_sw, (m0l, m0c), (x0l, x0c))
+    m1l, m1c, x1l, x1c = swap(c_sw, (m1l, m1c), (x1l, x1c))
+    m1l, m1c, x0l, x0c = swap(m1l > x0l, (m1l, m1c), (x0l, x0c))
+    min_l = (m0l + m1l + 1) >> 1
+    min_c = (m0c + m1c + 1) >> 1
+    max_l = (x0l + x1l + 1) >> 1
+    max_c = (x0c + x1c + 1) >> 1
+
+    diff = max_l - min_l
+    diff_c = max_c - min_c
+    xsh = _bitlen(torch.clamp(diff, min=0)) - 1
+    norm_diff = ((diff << 4) >> torch.clamp(xsh, 0, 31)) & 15
+    v = _cclm_div(dev)[norm_diff.long()] | 8
+    xsh = xsh + (norm_diff != 0).to(torch.int32)
+    ysh = torch.where(diff_c == 0, 0, _bitlen(torch.abs(diff_c)))
+    ysh_c = torch.clamp(ysh, 0, 31)
+    a = (diff_c * v + ((1 << ysh_c) >> 1)) >> ysh_c
+    shift = 3 + xsh - ysh
+    sat = 15 - 30 * (a < 0).to(torch.int32)
+    a = torch.where(shift < 1, torch.where(a == 0, 0, sat), a)
+    shift = torch.clamp(shift, min=1)
+    b = min_c - ((a * min_l) >> shift)
+    fit = (left_avail | above_avail) & (diff > 0)
+    a = torch.where(fit, a, 0)
+    b = torch.where(left_avail | above_avail,
+                    torch.where(diff > 0, b, min_c), 1 << (bd - 1))
+    shift = torch.where(fit, shift, 0)
+
+    # dense downsampled luma + linear transform on the chroma grid
+    iv = torch.arange(B, device=dev, dtype=torch.int32)[None, None, :]
+    jv = iv.transpose(1, 2)
+    yy = ly[:, :, None] + rec2 * jv                            # [K, B, 1]
+    xx = lx[:, :, None] + mult * iv                            # [K, 1, B]
+    no_left = (iv == 0) & ~build_left[:, :, None]
+    if collocated:
+        left_tap = torch.where(no_left, xx, xx - 1)
+        top_tap = torch.where((jv == 0) & ~build_above[:, :, None], yy,
+                              yy - stro)
+        ds = taps(t5[:5], ((top_tap, xx), (yy, xx), (yy, left_tap),
+                           (yy, xx + 1), (yy + stro, xx)), t5[5], t5[6])
+    else:
+        lx0 = torch.where(no_left, xx, torch.clamp(xx - 1, min=0))
+        xs1 = torch.clamp(xx + 1, max=lw - 1)
+        ds = taps(t6[:6], ((yy, xx), (yy, lx0), (yy, xs1), (yy + stro, xx),
+                           (yy + stro, lx0), (yy + stro, xs1)), t6[6],
+                  t6[7])
+    sh = shift[:, :, None]
+    return torch.clamp(b[:, :, None] + ((a[:, :, None] * ds) >> sh), 0,
+                       pel_max)
+
+
 def _block_index(d, hh: int, ww: int):
     """Flat indices [K, B, B] of each unit's B x B window (start clamped
     as lax.dynamic_slice clamps it) in a stacked [3, hh, ww] plane."""
@@ -318,23 +727,72 @@ def _block_index(d, hh: int, ww: int):
 
 
 @functools.lru_cache(maxsize=None)
+def _angular_filters(device):
+    """The cubic and gauss interpolation filters on `device`, made once."""
+    return tuple(torch.as_tensor(f, dtype=torch.int32, device=device)
+                 for f in (CHROMA_FILTER, GAUSS_FILTER))
+
+
+@functools.lru_cache(maxsize=None)
 def _intra_wavefront_fn(bd: int, cfmt: int, collocated: bool,
-                        ctu_log2: int, K: int):
+                        ctu_log2: int, K: int, has_lmcs: bool = False):
     """Wavefront-batched intra chain: one loop iteration per dependency
     step, each reconstructing up to K independent units at once (gather
     -> predict -> residual add -> masked block write into a stacked
     [3, H, W] plane, so a step can mix luma and chroma units).
 
-    run(planes, resis, batches): planes / resis are 3 padded int32
+    run(planes, resis, batches, lm): planes / resis are 3 padded int32
     tensors on one device; batches is the host's [S, K, D] numpy array
-    (its mode classes pick the predictor per step without a device
-    sync).  Returns the 3 planes.  The reference's fourth input, the
-    LMCS table, has no counterpart: plan_frame_device rejects LMCS.
-    Units inside one step never read each other's output, so the result
-    is bit-identical to a sequential scan."""
+    (its mode classes, MIP size ids, interpolation kinds and LMCS flags
+    pick what each step evaluates without a device sync); lm is the
+    build_lmcs_params table as an int32 tensor on that device, read only
+    with has_lmcs (then chroma residuals flagged in d[29] are scaled by
+    their VPDU's luma average).  Returns the 3 planes.  CCLM and the
+    LMCS scale read the luma plane as the earlier steps left it.  Units
+    inside one step never read each other's output, so the result is
+    bit-identical to a sequential scan."""
     pel_max = (1 << bd) - 1
+    num_nb = min(64, 1 << ctu_log2)
 
-    def run(planes, resis, batches):
+    def step(buf, P, Rf, hb, db, mc, lm):
+        """One wavefront step: gather, predict, add the residual, write.
+        hb is the step's host copy of the K descriptor rows, db the
+        device one; P the stacked planes viewed from buf, whose last
+        element takes the masked-out writes."""
+        dev = P.device
+        top, left = _gather_refs(P, db, bd)
+        if mc == 0:
+            blk = _pred_planar(top, left, db)
+        elif mc == 1:
+            blk = _pred_dc(top, left, db)
+        elif mc == 2:
+            kinds = set(np.clip(hb[:, 26], 0, 3).tolist())
+            cf, gf = _angular_filters(dev)
+            blk = _pred_angular(top, left, db, pel_max, cf, gf, kinds)
+        elif mc == 3:
+            valid = hb[hb[:, 28] == 1]
+            sids = sorted(set(np.clip(valid[:, 26], 0, 2).tolist()))
+            blk = _pred_mip(top, left, db, bd, sids)
+        else:
+            blk = _pred_cclm(top, left, db, P[0], bd, cfmt, collocated,
+                             ctu_log2)
+        if mc in (0, 1):
+            blk = torch.where(_col(db, 27) == 1,
+                              _pdpc_dc_planar(blk, top, left, db), blk)
+        idx = _block_index(db, P.shape[1], P.shape[2])
+        r = Rf[idx]
+        if has_lmcs and (hb[:, 29] & 1).any():
+            scale = _chroma_scale_dev(P[0], db, lm, bd, num_nb)
+            r = torch.where((_col(db, 29) & 1) == 1,
+                            _scale_signal_dev(r, scale[:, None, None], bd), r)
+        cbf = _col(db, 9) == 1
+        out = torch.clamp(blk + torch.where(cbf, r, torch.zeros_like(r)), 0,
+                          pel_max)
+        ys, xs = _grid(dev)
+        m = (ys < _col(db, 4)) & (xs < _col(db, 3)) & (_col(db, 28) == 1)
+        buf.index_put_((torch.where(m, idx, buf.numel() - 1),), out)
+
+    def run(planes, resis, batches, lm=None):
         batches = np.asarray(batches)
         dev = planes[0].device
         hh = max(max(p.shape[0] for p in planes), RL)
@@ -347,36 +805,15 @@ def _intra_wavefront_fn(bd: int, cfmt: int, collocated: bool,
         for c in range(3):
             P[c, :planes[c].shape[0], :planes[c].shape[1]] = planes[c]
             R[c, :resis[c].shape[0], :resis[c].shape[1]] = resis[c]
-        cf = torch.as_tensor(CHROMA_FILTER, dtype=torch.int32, device=dev)
-        gf = torch.as_tensor(GAUSS_FILTER, dtype=torch.int32, device=dev)
         bt = torch.as_tensor(batches, dtype=torch.int32, device=dev)
-        ys, xs = _grid(dev)
-        scratch = 3 * hh * ww
         Rf = R.reshape(-1)
         for s in range(batches.shape[0]):
             mc = int(batches[s, 0, 7])
-            db = bt[s]
-            top, left = _gather_refs(P, db, bd)
-            if mc == 0:
-                blk = _pred_planar(top, left, db)
-            elif mc == 1:
-                blk = _pred_dc(top, left, db)
-            elif mc == 2:
-                kinds = set(np.clip(batches[s, :, 26], 0, 3).tolist())
-                blk = _pred_angular(top, left, db, pel_max, cf, gf, kinds)
-            else:
+            if not 0 <= mc < len(STEP_STAGES):
                 raise NotImplementedError(
                     f"intra wavefront: mode class {mc} is not ported")
-            if mc in (0, 1):
-                blk = torch.where(_col(db, 27) == 1,
-                                  _pdpc_dc_planar(blk, top, left, db), blk)
-            idx = _block_index(db, hh, ww)
-            r = Rf[idx]
-            cbf = _col(db, 9) == 1
-            out = torch.clamp(blk + torch.where(cbf, r, torch.zeros_like(r)),
-                              0, pel_max)
-            m = (ys < _col(db, 4)) & (xs < _col(db, 3)) & (_col(db, 28) == 1)
-            buf.index_put_((torch.where(m, idx, scratch),), out)
+            with profiler.stage(STEP_STAGES[mc]):
+                step(buf, P, Rf, batches[s], bt[s], mc, lm)
         return tuple(P[c, :planes[c].shape[0], :planes[c].shape[1]]
                      for c in range(3))
 
@@ -494,18 +931,19 @@ def scan_key(cs) -> tuple:
             bool(cs.sps.chroma_ver_collocated), cs.sps.ctu_log2)
 
 
-def run_intra_scan(planes_pad, resi_pad, desc: np.ndarray, key):
+def run_intra_scan(planes_pad, resi_pad, desc: np.ndarray, key, lmcs=None):
     """Run the intra chain on the planes' device.  planes_pad/resi_pad:
     3 padded int32 tensors; desc is the [n, D] host descriptor array;
-    key = scan_key(cs).  The wavefront is the only path: units are
-    grouped by exact dependency level into steps of at most
-    WAVEFRONT_K."""
+    key = scan_key(cs); lmcs, when the picture uses LMCS, is the
+    build_lmcs_params table as an int32 tensor on that device.  The
+    wavefront is the only path: units are grouped by exact dependency
+    level into steps of at most WAVEFRONT_K."""
     if desc.shape[0] == 0:
         return tuple(planes_pad)
     lvl = compute_unit_levels(desc, key[1])
     batches = build_wavefront_batches(desc, lvl, WAVEFRONT_K)
-    fn = _intra_wavefront_fn(*key, WAVEFRONT_K)
-    return fn(tuple(planes_pad), tuple(resi_pad), batches)
+    fn = _intra_wavefront_fn(*key, WAVEFRONT_K, lmcs is not None)
+    return fn(tuple(planes_pad), tuple(resi_pad), batches, lmcs)
 
 
 # ======================================================================

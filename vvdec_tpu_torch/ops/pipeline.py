@@ -1,5 +1,5 @@
 """Batched residual stages (dequant + inverse transform, transform skip,
-LFNST) and the deblocking tables.
+LFNST), the ALF diamond filter and the deblocking tables.
 
 Subset of vvdec_tpu/ops/pipeline.py.  Each `_*_fn` factory returns a
 function over torch tensors; constants are placed on the input's device
@@ -187,6 +187,67 @@ def _itx_lfnst_fn(h: int, w: int, tr_hor: str, tr_ver: str,
         return torch.clamp((blk + (1 << (s2 - 1))) >> s2, clip_min, clip_max)
 
     return run
+
+
+# ---- ALF: the clipped diamond filter (AdaptiveLoopFilter::filterBlk) ----
+_LUMA_TAPS = ((3, 0), (2, 1), (2, 0), (2, -1), (1, 2), (1, 1), (1, 0),
+              (1, -1), (1, -2), (0, 3), (0, 2), (0, 1))
+_CHROMA_TAPS = ((2, 0), (1, 1), (1, 0), (1, -1), (0, 2), (0, 1))
+
+
+def _vb_row_tables(h: int, vb_ctu_h: int, vb_pos: int, chroma: bool):
+    """Per-row clipped vertical tap distances + near-VB flag
+    (frame/alf_np._vb_row_offsets, row by row)."""
+    from vvdec_tpu_torch.frame.alf_np import _vb_row_offsets
+    d = np.zeros((h, 4), dtype=np.int32)
+    near = np.zeros(h, dtype=bool)
+    for y in range(h):
+        d1, d2, d3, nr = _vb_row_offsets(y, vb_ctu_h, vb_pos, chroma)
+        d[y] = (0, d1, d2, d3)
+        near[y] = nr
+    return d, near
+
+
+@functools.lru_cache(maxsize=None)
+def _alf_diamond_dense_core(h: int, w: int, bd: int, n_taps: int,
+                            vb_h: int, vb_pos: int, chroma: bool,
+                            device: str):
+    """Whole-frame clipped-diamond ALF (7x7 luma with n_taps=12, 5x5
+    chroma with n_taps=6): apply(src, co, cl, mask) with per-pixel
+    coefficients and clip bounds co / cl [h, w, n_taps].  Each tap pair
+    reads src at rows y +- d(y) (the per-row virtual-boundary distance)
+    and columns x +- dx, clamped to the picture: the row and column
+    tables are built once per device.  Bit-exact int32 (parity:
+    AdaptiveLoopFilter::filterBlk; the reference's dense core)."""
+    taps = _LUMA_TAPS[:n_taps] if n_taps == 12 else _CHROMA_TAPS[:n_taps]
+    pel_max = (1 << bd) - 1
+    dmap, near = _vb_row_tables(h, vb_h, vb_pos, chroma)
+    ys = np.arange(h)
+    xs = np.arange(w)
+
+    def t(a, hi):
+        return torch.as_tensor(np.clip(a, 0, hi), dtype=torch.int64,
+                               device=device)
+
+    index = [(t(ys + dmap[:, dy], h - 1), t(xs + dx, w - 1),
+              t(ys - dmap[:, dy], h - 1), t(xs - dx, w - 1))
+             for dy, dx in taps]
+    near_rows = torch.as_tensor(near[:, None], device=device)
+
+    def apply(src, co, cl, mask):
+        s = src.to(torch.int32)
+        acc = torch.zeros_like(s)
+        for k, (ra, ca, rb, cb) in enumerate(index):
+            a = s.index_select(0, ra).index_select(1, ca)
+            b = s.index_select(0, rb).index_select(1, cb)
+            ck = cl[:, :, k]
+            diff = torch.clamp(a - s, -ck, ck) + torch.clamp(b - s, -ck, ck)
+            acc = acc + co[:, :, k] * diff
+        out = torch.where(near_rows, (acc + (1 << 9)) >> 10, (acc + 64) >> 7)
+        out = torch.clamp(out + s, 0, pel_max)
+        return torch.where(mask, out, s).to(src.dtype)
+
+    return apply
 
 
 # ---- deblocking tables (LoopFilter.cpp; shared with deblock_dense) ----

@@ -1,11 +1,21 @@
-"""The headline stream and its pinned output.
+"""The streams chip_smoke.py decodes, and their pinned outputs.
 
-HEADLINE_STREAM_KW are the parameters of the repository's headline
-config (bench.py, "all-intra 832x480"): 8 all-intra Main10 frames, CTU
-64, QP 32, deblocking on, no SAO or ALF.  HEADLINE_MD5 is the MD5 of its
+Each builder makes its stream with the port's own test encoder, with the
+parameters of a configuration of the repository's bench.py (or, for
+LMCS, of tests/test_lmcs.py), so a decode on the card can be held to the
+reference without importing it.  Each *_MD5 is the MD5 of the stream's
 decoded YUV (vvdecapp format) from vvdec_tpu's host golden decoder;
-tests/test_torch_decode.py checks both against the JAX package, so a
-decode on the card can be held to the reference without importing it.
+tests/test_torch_decode.py and tests/test_torch_streams.py check the
+bytes and the pins against the JAX package.
+
+- headline: bench.py "all-intra 832x480": 8 all-intra Main10 frames,
+  CTU 64, QP 32, deblocking on, no SAO or ALF.
+- tool-rich: bench.py "tool-rich intra (MIP/CCLM/LFNST/MTS) 832x480":
+  the intra tools real encoders turn on, 8 frames, QP 30.
+- SAO/ALF: bench.py "all-intra+SAO/ALF 832x480": the headline's
+  decisions with SAO, ALF (two APSs, luma and chroma) and CC-ALF on.
+- LMCS: the intra LMCS stream of tests/test_lmcs.py at 832x480, CTU 64,
+  with chroma residual scaling, 2 frames.
 """
 
 from __future__ import annotations
@@ -14,6 +24,21 @@ HEADLINE_STREAM_KW = dict(width=832, height=480, ctu=64, n_frames=8, seed=1,
                           qp=32, dec_kw=dict(split_prob=0.35, density=0.1))
 HEADLINE_MD5 = "064b05031ed6a06c4614f68d2b9aca96"
 
+TOOL_RICH_STREAM_KW = dict(
+    width=832, height=480, ctu=64, n_frames=8, seed=3, qp=30,
+    sps_kw=dict(mip_enabled=True, cclm_enabled=True, lfnst_enabled=True,
+                mts_enabled=True, explicit_mts_intra=True),
+    dec_kw=dict(split_prob=0.35, density=0.3, mip_prob=0.25))
+TOOL_RICH_MD5 = "648bf11d9b6e818b7afd4af000c75d38"
+
+SAO_ALF_STREAM_KW = dict(w=832, h=480, n=8, seed=1)
+SAO_ALF_MD5 = "750868ab632906394322184cf4f7cf15"
+
+LMCS_STREAM_KW = dict(seed=31, n_frames=2,
+                      dec_kw=dict(split_prob=0.35, density=0.3),
+                      chroma_scale=True, ctu=64, wh=(832, 480))
+LMCS_MD5 = "99ca41844f24a15cb38d29a3eb259a07"
+
 
 def headline_stream() -> bytes:
     """The headline Annex-B stream, made by the port's own test encoder."""
@@ -21,3 +46,90 @@ def headline_stream() -> bytes:
 
     s, _ = generate_stream(**HEADLINE_STREAM_KW)
     return s
+
+
+def tool_rich_stream() -> bytes:
+    """The tool-rich intra stream (MIP, CCLM, LFNST, explicit MTS)."""
+    from vvdec_tpu_torch.testenc.encoder import generate_stream
+
+    s, _ = generate_stream(**TOOL_RICH_STREAM_KW)
+    return s
+
+
+def _headers(sps, pps) -> bytes:
+    from vvdec_tpu_torch.bitstream.nal import NalUnitType
+    from vvdec_tpu_torch.testenc.bitwriter import BitWriter
+    from vvdec_tpu_torch.testenc.hls_writer import (make_nal, write_pps,
+                                                    write_sps)
+    bw = BitWriter()
+    write_sps(bw, sps)
+    st = make_nal(NalUnitType.SPS, bw.bytes())
+    bw = BitWriter()
+    write_pps(bw, pps, sps)
+    return st + make_nal(NalUnitType.PPS, bw.bytes())
+
+
+def sao_alf_stream(w: int, h: int, n: int, seed: int) -> bytes:
+    """bench.py's _intra_stream(w, h, n, seed, filters=True): all-intra
+    with SAO, ALF (two APSs with CC-ALF filters) and CC-ALF on."""
+    from vvdec_tpu_torch.testenc import encoder as E
+    from vvdec_tpu_torch.testenc.encoder import RandomDecisions, make_alf_aps
+    sps = E.make_sps(w, h, ctu=64, sao_enabled=True, alf_enabled=True,
+                     ccalf_enabled=True)
+    pps = E.make_pps(sps)
+    st = _headers(sps, pps)
+    apss = {}
+    for i in range(2):
+        aps, nal = make_alf_aps(seed * 10 + i, aps_id=i, cc=True)
+        apss[i] = aps
+        st += nal
+    sh_kw = dict(sao_enabled_luma=True, sao_enabled_chroma=True,
+                 alf_enabled=[True, True, True],
+                 num_alf_aps_ids_luma=2, alf_aps_ids_luma=[0, 1],
+                 alf_aps_id_chroma=0,
+                 ccalf_cb_enabled=apss[0].cc_alf.new_filter[0],
+                 ccalf_cb_aps_id=0,
+                 ccalf_cr_enabled=apss[1].cc_alf.new_filter[1],
+                 ccalf_cr_aps_id=1)
+    for f in range(n):
+        dec = RandomDecisions(seed=seed * 100 + f, split_prob=0.35,
+                              density=0.1, sao_prob=0.5)
+        nal, _ = E.encode_frame(sps, pps, dec, qp=32, poc=f, idr=True,
+                                sh_kw=sh_kw, alf_apss=apss)
+        st += nal
+    return st
+
+
+def lmcs_stream(seed: int, n_frames: int, dec_kw: dict, chroma_scale: bool,
+                ctu: int, wh: tuple) -> bytes:
+    """tests/test_lmcs.py's _lmcs_stream for all-intra pictures
+    (slice_type 2, no extra SPS flags): every frame an IDR with LMCS
+    on."""
+    from vvdec_tpu_torch.testenc import encoder as E
+    from vvdec_tpu_torch.testenc.encoder import RandomDecisions, make_lmcs_aps
+    sps = E.make_sps(wh[0], wh[1], ctu=ctu, lmcs_enabled=True)
+    pps = E.make_pps(sps)
+    st = _headers(sps, pps)
+    _, aps_nal = make_lmcs_aps(seed)
+    st += aps_nal
+    ph_kw = dict(lmcs_enabled=True, lmcs_aps_id=0,
+                 chroma_residual_scale=chroma_scale)
+    for f in range(n_frames):
+        dec = RandomDecisions(seed=seed * 100 + f, **dec_kw)
+        nal, _ = E.encode_frame(sps, pps, dec, qp=32, poc=f, idr=True,
+                                ph_kw=ph_kw)
+        st += nal
+    return st
+
+
+# name -> (builder, frames, pinned MD5), in chip_smoke.py's order
+STREAMS = {
+    "headline": (headline_stream, HEADLINE_STREAM_KW["n_frames"],
+                 HEADLINE_MD5),
+    "tool-rich": (tool_rich_stream, TOOL_RICH_STREAM_KW["n_frames"],
+                  TOOL_RICH_MD5),
+    "SAO/ALF": (lambda: sao_alf_stream(**SAO_ALF_STREAM_KW),
+                SAO_ALF_STREAM_KW["n"], SAO_ALF_MD5),
+    "LMCS": (lambda: lmcs_stream(**LMCS_STREAM_KW),
+             LMCS_STREAM_KW["n_frames"], LMCS_MD5),
+}
