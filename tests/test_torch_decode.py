@@ -149,6 +149,38 @@ def test_tool_stream_matches_jax_device_pipeline(name):
     _assert_equal(ref(s, use_jax=True), decode_annexb(s, device="cpu"))
 
 
+def _bi_refined_stream(tool):
+    """tests/test_frame_device.py::TestFrameDeviceInter::
+    test_dmvr_falls_back_bit_exact's layout (POC 0, 2, then a B picture
+    at POC 1 between them, equal-distance bi-prediction) with
+    `<tool>_enabled`: DMVR- or BDOF-eligible CUs."""
+    from vvdec_tpu.bitstream.nal import NalUnitType
+    from vvdec_tpu.hls.params import B_SLICE
+    from vvdec_tpu.testenc import encoder as E
+    from vvdec_tpu.testenc.bitwriter import BitWriter
+    from vvdec_tpu.testenc.encoder import RandomDecisions
+    from vvdec_tpu.testenc.hls_writer import make_nal, write_pps, write_sps
+    sps = E.make_sps(tfd.WH[0], tfd.WH[1], ctu=32, num_reorder_pics=[1],
+                     **{f"{tool}_enabled": True})
+    pps = E.make_pps(sps)
+    bw = BitWriter()
+    write_sps(bw, sps)
+    st = make_nal(NalUnitType.SPS, bw.bytes())
+    bw = BitWriter()
+    write_pps(bw, pps, sps)
+    st += make_nal(NalUnitType.PPS, bw.bytes())
+    dec = RandomDecisions(seed=41, split_prob=0.2)
+    st += E.encode_frame(sps, pps, dec, qp=32, poc=0, idr=True)[0]
+    dec = RandomDecisions(seed=42, split_prob=0.2)
+    st += E.encode_frame(sps, pps, dec, qp=32, poc=2, idr=False,
+                         slice_type=1, ref_deltas=((2,), ()))[0]
+    dec = RandomDecisions(seed=43, split_prob=0.2, inter_prob=0.9,
+                          bi_prob=0.9, mv_range=24)
+    st += E.encode_frame(sps, pps, dec, qp=32, poc=1, idr=False,
+                         slice_type=B_SLICE, ref_deltas=((1,), (-1,)))[0]
+    return st
+
+
 def _rejected_streams():
     from tests.test_lmcs import _lmcs_stream
 
@@ -157,14 +189,12 @@ def _rejected_streams():
                                n_frames=1, seed=kw.pop("seed"), qp=30,
                                **kw)[0]
 
-    ikw = tfd.TestFrameDeviceInter.IKW
     return {
         "isp": lambda: gen(seed=18, sps_kw=dict(isp_enabled=True),
                            dec_kw=dict(split_prob=0.4, density=0.3,
                                        isp_prob=0.8)),
-        "inter": lambda: tfd._ld_stream(2, 31, ikw),
-        "ciip": lambda: tfd._ld_stream(2, 39, dict(ikw, ciip_prob=0.9),
-                                   sps_kw=dict(ciip_enabled=True)),
+        "dmvr": lambda: _bi_refined_stream("dmvr"),
+        "bdof": lambda: _bi_refined_stream("bdof"),
         # TestFrameDeviceLmcs::test_lmcs_inter_falls_back_bit_exact
         "lmcs_inter": lambda: _lmcs_stream(
             35, 3, 0, {}, dict(split_prob=0.5, density=0.3, inter_prob=0.8),
@@ -172,7 +202,7 @@ def _rejected_streams():
     }
 
 
-@pytest.mark.parametrize("reason", ["isp", "inter", "ciip", "lmcs_inter"])
+@pytest.mark.parametrize("reason", ["isp", "dmvr", "bdof", "lmcs_inter"])
 def test_unported_tools_raise(reason):
     """A picture the port cannot run raises, naming the reason; the
     reference's census names the same picture as a host fallback."""

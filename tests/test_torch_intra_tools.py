@@ -347,7 +347,7 @@ def test_window_starts_wrap_like_dynamic_slice():
     xs = np.array([-3, 50, -60, -1, -20, 60], dtype=np.int32)
     h, w = 8, 4
     want = np.asarray(R._extract_fn(h, w, 6)(*_jax((plane, ys, xs))))
-    got = to_numpy(T._extract_fn(h, w, 6)(*to_torch((plane, ys, xs), "cpu")))
+    got = to_numpy(T._extract_fn(h, w)(*to_torch((plane, ys, xs), "cpu")))
     assert np.array_equal(got, want)
     # disjoint destinations after the wrap, so the write order is moot
     ys, xs = ys[[0, 2, 5]], xs[[0, 2, 5]]
@@ -355,6 +355,6 @@ def test_window_starts_wrap_like_dynamic_slice():
     base = np.zeros((40, 56), np.int32)
     want = np.asarray(R._scatter_fn(40, 56, h, w, 3)(
         *_jax((base, blocks, ys, xs))))
-    got = to_numpy(T._scatter_fn(40, 56, h, w, 3)(
+    got = to_numpy(T._scatter_fn(h, w)(
         *to_torch((base, blocks, ys, xs), "cpu")))
     assert np.array_equal(got, want)

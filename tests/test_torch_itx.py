@@ -479,9 +479,9 @@ def test_itx_residual_device_one_kernel_call_per_frame(monkeypatch):
         finally:
             monkeypatch.setattr(F, "_extract_fn", extract)
 
-    def extract(h, w, n):
+    def extract(h, w):
         extracts.append((h, w))
-        return real_extract(h, w, n)
+        return real_extract(h, w)
 
     monkeypatch.setattr(F, "itx_frame_cuda", frame)
     monkeypatch.setattr(F, "_extract_fn", extract)

@@ -138,13 +138,13 @@ def test_extract_and_scatter_clamp_like_dynamic_slice():
     xs = np.array([52, 0, 55, 60, 16], dtype=np.int32)
     h, w = 8, 4
     want = _np(R._extract_fn(h, w, 5)(*_jax((plane, ys, xs))))
-    got = to_numpy(T._extract_fn(h, w, 5)(*to_torch((plane, ys, xs),
+    got = to_numpy(T._extract_fn(h, w)(*to_torch((plane, ys, xs),
                                                     "cpu")))
     assert np.array_equal(got, want)
     blocks = rng.integers(-500, 500, size=(5, h, w)).astype(np.int32)
     base = np.zeros((40, 56), np.int32)
     want = _np(R._scatter_fn(40, 56, h, w, 5)(*_jax((base, blocks, ys, xs))))
-    got = to_numpy(T._scatter_fn(40, 56, h, w, 5)(
+    got = to_numpy(T._scatter_fn(h, w)(
         *to_torch((base, blocks, ys, xs), "cpu")))
     assert np.array_equal(got, want)
 

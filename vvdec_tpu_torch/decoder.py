@@ -10,9 +10,12 @@ A copy of vvdec_tpu/decoder.py with these changes: `use_jax` becomes
 for the CPU); every picture runs the port's device pipeline
 (ops/frame_device.py), and a picture outside its tool set raises
 NotImplementedError("device_recon:<reason>") — there is no host
-reconstruction or host filter fallback.  Only intra pictures run, so
-what serves inter pictures (reference-set resolution, the device DPB,
-concealment of lost references) is not carried over, nor are the
+reconstruction or host filter fallback.  Inter pictures resolve their
+reference sets per slice and read their references from the device DPB
+(`_refs_dev`: each decoded picture's filtered planes, kept on the device
+until the next IDR); a missing reference raises ValueError, as the
+reference's strict mode does.  Not carried over: the concealment of lost
+references and broken pictures (err_policy="conceal"), the
 recon-while-parse thread pool and the command-line entry point.
 """
 
@@ -290,7 +293,10 @@ class _DeferredFrame:
 
 
 def t_is_ref(nal_type) -> bool:
-    return True  # RASL/RADL handling arrives with inter support
+    """Whether a TemporalId-0 picture of this NAL type updates prevTid0Pic:
+    every type does, as in vvdec_tpu (RASL, RADL and sub-layer
+    non-reference pictures are not singled out)."""
+    return True
 
 
 def parse_annexb(data: bytes) -> list[ParsedFrame]:
@@ -304,10 +310,10 @@ class StreamDecoder:
     The vvdec_decode/vvdec_flush analog (vvdecimpl.cpp:271,:511): NAL
     dispatch to the parser, one-picture parse-ahead (a picture is
     reconstructed when the next one begins, so its suffix SEIs — notably
-    the decoded-picture-hash — are attached first), and DPB output
-    bumping.  Intra pictures only: they read no reference, so the
-    reference's reference-set resolution, its concealment of broken
-    streams and its recon-while-parse thread pool are not carried over."""
+    the decoded-picture-hash — are attached first), reference management
+    with a device-resident DPB, and DPB output bumping.  The reference's
+    concealment of broken streams and its recon-while-parse thread pool
+    are not carried over."""
 
     def __init__(self, device=None, strict_hash: bool = True):
         """device: where the reconstruction runs (default CUDA; raises when
@@ -319,6 +325,12 @@ class StreamDecoder:
         self.device = resolve_device(device)
         self.strict_hash = strict_hash
         self.hash_errors = 0
+        # the device DPB: poc -> the filtered planes on the device (the
+        # PendingFrame's planes_dev, kept past its readback), plus what
+        # later pictures' motion derivation and RPR check read
+        self._refs_dev: dict[int, tuple] = {}
+        self._ref_cols: dict[int, object] = {}  # poc -> ColMotion
+        self._ref_pps: dict[int, object] = {}   # poc -> PPS (RPR scaling)
         self._pending: ParsedFrame | None = None
         self._num_reorder = 0
         # random-access tune-in state
@@ -385,33 +397,152 @@ class StreamDecoder:
             return True
         return False
 
+    @staticmethod
+    def _rpl_key(sh):
+        """Hashable identity of a slice's RPLs + active counts (two
+        slices with equal keys share one resolved reference set)."""
+        out = [tuple(sh.num_ref_idx_active)]
+        for lst in range(2):
+            rpl = sh.rpl[lst]
+            out.append(None if rpl is None else tuple(
+                (e.is_long_term, e.value,
+                 getattr(e, "delta_poc_msb_present", False),
+                 getattr(e, "delta_poc_msb_cycle", 0))
+                for e in rpl.entries))
+        return tuple(out)
+
+    def _build_ref_set(self, f, cs, sh_ref):
+        """Resolve one slice's RPLs: (ref_pocs, ref_planes, ref_cols,
+        ref_scaled, check_ldc) (Slice::constructRefPicLists +
+        scaleRefPicList).  ref_planes holds the device DPB's planes."""
+        from vvdec_tpu_torch.frame import rpr_np
+        ref_pocs = [[], []]
+        ref_planes = [[], []]
+        ref_cols = [[], []]
+        ref_scaled = [[], []]
+        for lst in range(2):
+            rpl = sh_ref.rpl[lst]
+            if rpl is None:
+                continue
+            for e in rpl.entries:
+                if e.is_long_term:
+                    # long-term reference: match by POC LSB, or by full
+                    # POC when the MSB cycle is signalled
+                    # (Slice::constructRefPicLists + xGetLongTermRefPic)
+                    max_lsb = cs.sps.max_poc_lsb
+                    if e.delta_poc_msb_present:
+                        ref_poc = (e.value + f.poc
+                                   - e.delta_poc_msb_cycle * max_lsb
+                                   - (f.poc & (max_lsb - 1)))
+                    else:
+                        ref_poc = next(
+                            (p for p in sorted(self._refs_dev, reverse=True)
+                             if (p & (max_lsb - 1)) == e.value),
+                            e.value)
+                else:
+                    ref_poc = f.poc + e.value
+                ref_pocs[lst].append(ref_poc)
+                if ref_poc not in self._refs_dev:
+                    raise ValueError(f"missing reference POC {ref_poc}")
+                ref_planes[lst].append(self._refs_dev[ref_poc])
+                ref_cols[lst].append(self._ref_cols[ref_poc])
+                # RPR: record per-ref scaling when the reference uses a
+                # different size/scaling window (Slice::scaleRefPicList)
+                ref_pps = self._ref_pps.get(ref_poc, cs.pps)
+                if rpr_np.is_ref_scaled(cs.pps, ref_pps):
+                    ref_scaled[lst].append(
+                        (rpr_np.get_rpr_scaling(cs.sps, cs.pps,
+                                                ref_pps), ref_pps))
+                else:
+                    ref_scaled[lst].append(None)
+        # low-delay check: every active reference precedes this picture
+        check_ldc = all(
+            p <= f.poc
+            for lst in range(2)
+            for p in ref_pocs[lst][: sh_ref.num_ref_idx_active[lst]])
+        return ref_pocs, ref_planes, ref_cols, ref_scaled, check_ldc
+
+    def _resolve_ref_sets(self, f, cs) -> None:
+        """Per-slice reference sets (the reference constructs RPLs per
+        slice, Slice::constructRefPicLists); the shared cs.ref_* come from
+        the first inter slice, and when slices disagree cs.per_slice_rpl
+        is set (plan_frame_device rejects such pictures)."""
+        sh_ref = next((s for s in cs.shs if not s.is_intra), cs.sh)
+        cs.ref_pocs = [[], []]
+        cs.ref_planes = [[], []]
+        cs.ref_cols = [[], []]
+        cs.ref_scaled = [[], []]  # (scaling, ref_pps) or None per ref (RPR)
+        cs.per_slice_rpl = False
+        cs.slice_ref_sets = [None] * len(cs.shs)
+        if sh_ref.is_intra:
+            return
+        sets_by_key: dict = {}
+        first_key = None
+        for si, s in enumerate(cs.shs):
+            if s.is_intra:
+                continue
+            key = self._rpl_key(s)
+            if key not in sets_by_key:
+                sets_by_key[key] = self._build_ref_set(f, cs, s)
+            cs.slice_ref_sets[si] = sets_by_key[key]
+            if first_key is None:
+                first_key = key
+        cs.per_slice_rpl = len(sets_by_key) > 1
+        (cs.ref_pocs, cs.ref_planes, cs.ref_cols, cs.ref_scaled,
+         cs.check_ldc) = sets_by_key[first_key]
+
     def _reconstruct(self, f: ParsedFrame) -> None:
         if self._random_access_skip(f):
             return
         from vvdec_tpu_torch.dpb import DecodedPicture
+        from vvdec_tpu_torch.frame.inter_np import ColMotion
 
         cs = f.cs
         if f.is_idr:
             # previous pictures can no longer be referenced (NoOutputOfPrior
             # handling is trivial here: they remain output-marked)
             self.plm.unmark_all_references()
+            self._refs_dev.clear()
+            self._ref_cols.clear()
+            self._ref_pps.clear()
         self._num_reorder = cs.sps.num_reorder_pics[-1]
+        self._resolve_ref_sets(f, cs)
         from vvdec_tpu_torch.utils.trace import msg, profiler, trace, INFO
         t_pic = time.monotonic()
-        # full device pipeline: ITX + intra chain + filters + packing in
-        # one device-resident flow (ops/frame_device.py)
+        # full device pipeline: ITX + MC + intra chain + filters + packing
+        # in one device-resident flow (ops/frame_device.py); it times its
+        # host stages itself ("plan (host)", "motion (host)")
         from vvdec_tpu_torch.ops.frame_device import (
             plan_frame_device, reconstruct_frame_device)
-        with profiler.stage("plan (host)"):
-            desc, dev_reason = plan_frame_device(cs)
+        desc, dev_reason = plan_frame_device(cs)
         if desc is None:
             raise NotImplementedError(f"device_recon:{dev_reason}")
-        pending = reconstruct_frame_device(cs, desc, device=self.device)
+
+        def get_ref(lst, ref_idx, comp):
+            return cs.ref_planes[lst][ref_idx][comp]
+
+        pending = reconstruct_frame_device(cs, desc, get_ref,
+                                           device=self.device)
+        # device-resident DPB entry, stored before the readback drops the
+        # PendingFrame's device planes: later pictures gather their MC
+        # references from it without a host round trip
+        self._refs_dev[f.poc] = tuple(pending.planes_dev)
         deferred = _DeferredFrame(self, pending, f.sei, f.poc,
                                   cs.sps.bit_depth)
+        # DMVR-refined MVs enter the motion field only after deblocking
+        # strength derivation (TaskFinishMotionInfo, DecCu.cpp:161-213);
+        # the DMVR stage (not ported: plan_frame_device rejects its
+        # pictures) fills cs.dmvr_fixups
+        for x2, y2, mv0, mv1 in getattr(cs, "dmvr_fixups", ()):
+            cs.mi_mv[y2 >> 2, x2 >> 2, 0] = mv0
+            cs.mi_mv[y2 >> 2, x2 >> 2, 1] = mv1
+        self._ref_pps[f.poc] = cs.pps
+        with profiler.stage("motion (host)"):
+            self._ref_cols[f.poc] = ColMotion(cs, f.poc)
         # per-POC decode log + trace (reference per-picture log line,
         # DecLib.cpp:395-438; D_PIC trace channel)
-        st = "IDR" if f.is_idr else "I"
+        st = "IDR" if f.is_idr else ("I" if cs.sh.is_intra else
+                                     ("B" if cs.sh.is_b else "P"))
         msg(INFO, f"POC {f.poc:4d} [{st}] QP {cs.sh.qp_y} "
                   f"[DT {time.monotonic() - t_pic:.3f}]")
         trace("D_PIC", f"poc={f.poc} type={st}\n", poc=f.poc)

@@ -259,15 +259,13 @@ def itx_frame_ref(coef, resi, table, pool, *, n_tasks: int,
     for gi, (comp, lh, lw, mv_off, mh_off) in enumerate(keys.tolist()):
         sel = torch.as_tensor(rows[inv.reshape(-1) == gi], device=dev)
         h, w = 1 << lh, 1 << lw
-        n = sel.shape[0]
         mv = pool[mv_off:mv_off + h * h].view(h, h).t().to(torch.int32)
         mh = pool[mh_off:mh_off + w * w].view(w, w).t().to(torch.int32)
         ys, xs = sel[:, 1], sel[:, 2]
-        levels = _extract_fn(h, w, n)(coef[comp], ys, xs)
+        levels = _extract_fn(h, w)(coef[comp], ys, xs)
         out = itx_batch_ref(levels, sel[:, 7], sel[:, 8], sel[:, 9], mv, mh,
                             h=h, w=w, bit_depth=bit_depth)
-        resi[comp] = _scatter_fn(resi[comp].shape[0], resi[comp].shape[1],
-                                 h, w, n)(resi[comp], out, ys, xs)
+        resi[comp] = _scatter_fn(h, w)(resi[comp], out, ys, xs)
     return resi
 
 

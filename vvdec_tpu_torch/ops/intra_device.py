@@ -6,9 +6,9 @@ Port of vvdec_tpu/ops/intra_device.py (the wavefront path, mode classes
 0-4: planar, DC and angular with PDPC, reference smoothing and the
 cubic / gauss / chroma interpolation filters; MIP; CCLM off the luma
 plane as the earlier steps left it; intra LMCS: the VPDU chroma
-residual scale and the inverse luma map).  CIIP (class 5) and the
-sequential debug scan are not ported yet; plan_frame_device rejects
-pictures that need them.
+residual scale and the inverse luma map; the CIIP blend, class 5,
+over the raw inter prediction the MC stage left in the plane).  The
+sequential debug scan is not ported.
 
 The reference-sample geometry (availability, substitution, replication;
 xFillReferenceSamples, IntraPrediction.cpp:1161) is value-independent,
@@ -61,12 +61,13 @@ WAVEFRONT_K = 8      # units per wavefront step (the reference's K)
 # profiler stage of a wavefront step, by mode class (host time: the
 # steps are launch-bound, and a per-step device sync would change that)
 STEP_STAGES = ("intra step: planar", "intra step: DC",
-               "intra step: angular", "intra step: MIP", "intra step: CCLM")
+               "intra step: angular", "intra step: MIP", "intra step: CCLM",
+               "intra step: CIIP")
 
 # descriptor row layout (int32):
 #  0 comp; 1 x; 2 y; 3 w; 4 h; 5 log2w; 6 log2h;
-#  7 mode_class (0 planar, 1 DC, 2 angular, 3 MIP, 4 CCLM; 5 CIIP is
-#    not ported); 8 filtered ([1 2 1] refs); 9 cbf; 10 avail0;
+#  7 mode_class (0 planar, 1 DC, 2 angular, 3 MIP, 4 CCLM, 5 CIIP);
+#  8 filtered ([1 2 1] refs); 9 cbf; 10 avail0;
 #  top fill:  value(i) = plane[ty_a if i < ty_k else ty_b,
 #                              clamp(tx0 + i, txlo, txhi)]
 #  11 ty_a; 12 ty_b; 13 ty_k; 14 tx0; 15 txlo; 16 txhi;
@@ -81,7 +82,7 @@ STEP_STAGES = ("intra step: planar", "intra step: DC",
 #  30 x_pos; 31 y_pos (luma coords of the VPDU's top-left CU); 32 rsvd
 #  MIP reuses 24 mode, 25 transpose, 26 size id; CCLM reuses 23
 #  build_left, 24 actual_top, 25 actual_left, 26 above | left << 1
-#  avail, 27 build_above.
+#  avail, 27 build_above; CIIP reuses 24 w_intra, 25 w_merge.
 
 
 def _col(d, k):
@@ -773,13 +774,20 @@ def _intra_wavefront_fn(bd: int, cfmt: int, collocated: bool,
             valid = hb[hb[:, 28] == 1]
             sids = sorted(set(np.clip(valid[:, 26], 0, 2).tolist()))
             blk = _pred_mip(top, left, db, bd, sids)
-        else:
+        elif mc == 4:
             blk = _pred_cclm(top, left, db, P[0], bd, cfmt, collocated,
                              ctu_log2)
-        if mc in (0, 1):
+        else:
+            blk = _pred_planar(top, left, db)
+        if mc in (0, 1, 5):
             blk = torch.where(_col(db, 27) == 1,
                               _pdpc_dc_planar(blk, top, left, db), blk)
         idx = _block_index(db, P.shape[1], P.shape[2])
+        if mc == 5:
+            # CIIP (predBlendIntraCiip, IntraPrediction.cpp:884): planar
+            # blended with the raw inter prediction in the plane
+            cur = P.reshape(-1)[idx]
+            blk = (_col(db, 25) * cur + _col(db, 24) * blk + 2) >> 2
         r = Rf[idx]
         if has_lmcs and (hb[:, 29] & 1).any():
             scale = _chroma_scale_dev(P[0], db, lm, bd, num_nb)

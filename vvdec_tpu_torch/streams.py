@@ -4,18 +4,30 @@ Each builder makes its stream with the port's own test encoder, with the
 parameters of a configuration of the repository's bench.py (or, for
 LMCS, of tests/test_lmcs.py), so a decode on the card can be held to the
 reference without importing it.  Each *_MD5 is the MD5 of the stream's
-decoded YUV (vvdecapp format) from vvdec_tpu's host golden decoder;
+decoded YUV (vvdecapp format) from vvdec_tpu's host golden decoder
+(for inter-LDB tools, with its native inter path off: that path
+inherits a wrong BCW index in affine merge, see ROADMAP.md queue 3);
 tests/test_torch_decode.py and tests/test_torch_streams.py check the
 bytes and the pins against the JAX package.
 
 - headline: bench.py "all-intra 832x480": 8 all-intra Main10 frames,
   CTU 64, QP 32, deblocking on, no SAO or ALF.
 - tool-rich: bench.py "tool-rich intra (MIP/CCLM/LFNST/MTS) 832x480":
-  the intra tools real encoders turn on, 8 frames, QP 30.
+  the intra tools real encoders turn on, QP 30; its first 4 of 8
+  frames (cut so that chip_smoke.py stays within its time).
 - SAO/ALF: bench.py "all-intra+SAO/ALF 832x480": the headline's
-  decisions with SAO, ALF (two APSs, luma and chroma) and CC-ALF on.
+  decisions with SAO, ALF (two APSs, luma and chroma) and CC-ALF on;
+  its first 4 of 8 frames, cut likewise.
 - LMCS: the intra LMCS stream of tests/test_lmcs.py at 832x480, CTU 64,
   with chroma residual scaling, 2 frames.
+- inter-LD: bench.py "inter-LD 832x480": an IDR and 11 low-delay P
+  pictures (references: the previous two), CTU 64, QP 32.
+- inter-LDB tools: 832x480, CTU 64, an IDR and 5 low-delay B pictures
+  whose two lists both hold the previous picture (VTM's low-delay
+  shape), with the SPS flags and decisions of
+  tests/test_oracle.py::TestNativeMotionParity::test_full_toolset_ab
+  (seed 0) and PROF: affine, SbTMVP / TMVP, MMVD, GPM, CIIP, BCW, AMVR.
+  DMVR, BDOF and SMVD cannot fire with both lists on one past picture.
 """
 
 from __future__ import annotations
@@ -25,19 +37,37 @@ HEADLINE_STREAM_KW = dict(width=832, height=480, ctu=64, n_frames=8, seed=1,
 HEADLINE_MD5 = "064b05031ed6a06c4614f68d2b9aca96"
 
 TOOL_RICH_STREAM_KW = dict(
-    width=832, height=480, ctu=64, n_frames=8, seed=3, qp=30,
+    width=832, height=480, ctu=64, n_frames=4, seed=3, qp=30,
     sps_kw=dict(mip_enabled=True, cclm_enabled=True, lfnst_enabled=True,
                 mts_enabled=True, explicit_mts_intra=True),
     dec_kw=dict(split_prob=0.35, density=0.3, mip_prob=0.25))
-TOOL_RICH_MD5 = "648bf11d9b6e818b7afd4af000c75d38"
+TOOL_RICH_MD5 = "bd363866f3c753c0ad020d2a7a5deb33"
 
-SAO_ALF_STREAM_KW = dict(w=832, h=480, n=8, seed=1)
-SAO_ALF_MD5 = "750868ab632906394322184cf4f7cf15"
+SAO_ALF_STREAM_KW = dict(w=832, h=480, n=4, seed=1)
+SAO_ALF_MD5 = "f70a3843453637ace35361b992e5e461"
 
 LMCS_STREAM_KW = dict(seed=31, n_frames=2,
                       dec_kw=dict(split_prob=0.35, density=0.3),
                       chroma_scale=True, ctu=64, wh=(832, 480))
 LMCS_MD5 = "99ca41844f24a15cb38d29a3eb259a07"
+
+INTER_LD_STREAM_KW = dict(w=832, h=480, n=12, seed=5,
+                          dec_kw=dict(split_prob=0.35, inter_prob=0.85,
+                                      skip_prob=0.3, mv_range=32))
+INTER_LD_MD5 = "ef6588cfd3e09b6827d76475ed85bea4"
+
+INTER_LDB_STREAM_KW = dict(
+    w=832, h=480, n=6, seed=0,
+    sps_kw=dict(affine_enabled=True, affine_6param=True,
+                temporal_mvp_enabled=True, sbtmvp_enabled=True,
+                mmvd_enabled=True, smvd_enabled=True, gpm_enabled=True,
+                ciip_enabled=True, bcw_enabled=True, amvr_enabled=True,
+                dmvr_enabled=True, bdof_enabled=True, prof_enabled=True),
+    dec_kw=dict(split_prob=0.5, inter_prob=0.8, skip_prob=0.15, mv_range=48,
+                bi_prob=0.6, affine_prob=0.25, affine_merge_prob=0.3,
+                geo_prob=0.2, mmvd_prob=0.2, ciip_prob=0.15, smvd_prob=0.2,
+                bcw_prob=0.3, amvr_prob=0.3))
+INTER_LDB_MD5 = "52f3504d2a4d4fbba74abb1d207e7c45"
 
 
 def headline_stream() -> bytes:
@@ -122,6 +152,50 @@ def lmcs_stream(seed: int, n_frames: int, dec_kw: dict, chroma_scale: bool,
     return st
 
 
+def inter_ld_stream(w: int, h: int, n: int, seed: int, dec_kw: dict
+                    ) -> bytes:
+    """bench.py's _ld_stream: an IDR, then low-delay P pictures that
+    reference the previous two (one for the first)."""
+    from vvdec_tpu_torch.hls.params import P_SLICE
+    from vvdec_tpu_torch.testenc import encoder as E
+    from vvdec_tpu_torch.testenc.encoder import RandomDecisions
+    sps = E.make_sps(w, h, ctu=64, num_reorder_pics=[0])
+    pps = E.make_pps(sps)
+    st = _headers(sps, pps)
+    for f in range(n):
+        dec = RandomDecisions(seed=seed * 100 + f, **dec_kw)
+        if f == 0:
+            nal, _ = E.encode_frame(sps, pps, dec, qp=32, poc=0, idr=True)
+        else:
+            nal, _ = E.encode_frame(
+                sps, pps, dec, qp=32, poc=f, idr=False, slice_type=P_SLICE,
+                ref_deltas=((1, 2) if f >= 2 else (1,), ()))
+        st += nal
+    return st
+
+
+def inter_ldb_stream(w: int, h: int, n: int, seed: int, sps_kw: dict,
+                     dec_kw: dict) -> bytes:
+    """An IDR, then low-delay B pictures with both lists on the previous
+    picture, CTU 64, QP 32."""
+    from vvdec_tpu_torch.hls.params import B_SLICE
+    from vvdec_tpu_torch.testenc import encoder as E
+    from vvdec_tpu_torch.testenc.encoder import RandomDecisions
+    sps = E.make_sps(w, h, ctu=64, **sps_kw)
+    pps = E.make_pps(sps)
+    st = _headers(sps, pps)
+    for f in range(n):
+        dec = RandomDecisions(seed=seed * 100 + f, **dec_kw)
+        if f == 0:
+            nal, _ = E.encode_frame(sps, pps, dec, qp=32, poc=0, idr=True)
+        else:
+            nal, _ = E.encode_frame(sps, pps, dec, qp=32, poc=f, idr=False,
+                                    slice_type=B_SLICE,
+                                    ref_deltas=((1,), (1,)))
+        st += nal
+    return st
+
+
 # name -> (builder, frames, pinned MD5), in chip_smoke.py's order
 STREAMS = {
     "headline": (headline_stream, HEADLINE_STREAM_KW["n_frames"],
@@ -132,4 +206,8 @@ STREAMS = {
                 SAO_ALF_STREAM_KW["n"], SAO_ALF_MD5),
     "LMCS": (lambda: lmcs_stream(**LMCS_STREAM_KW),
              LMCS_STREAM_KW["n_frames"], LMCS_MD5),
+    "inter-LD": (lambda: inter_ld_stream(**INTER_LD_STREAM_KW),
+                 INTER_LD_STREAM_KW["n"], INTER_LD_MD5),
+    "inter-LDB tools": (lambda: inter_ldb_stream(**INTER_LDB_STREAM_KW),
+                        INTER_LDB_STREAM_KW["n"], INTER_LDB_MD5),
 }
