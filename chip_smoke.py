@@ -38,14 +38,27 @@ result line:
    now has "motion (host)", the MC stages "mc: ..." and the CIIP steps);
    the ITX kernel is held to its plain version on every recorded frame
    and timed on the inter-LD frames;
-7. the device's busy share over a one-frame decode (headline), and over
+7. random access: the RA stream (a hierarchical-B GOP of 5 pictures
+   with DMVR, BDOF, TMVP, MMVD, AMVR, BCW, affine + PROF and SbTMVP),
+   decoded as in phase 5 with an empty fallback census; the profiled
+   decode's stage split shows "mc: DMVR" and "mc: BDOF", and the DMVR
+   and BDOF CUs and subblocks per B picture are printed;
+8. the host reconstruction: the inter-LMCS stream (an IDR and two B
+   pictures with LMCS), whose B pictures the device pipeline rejects:
+   the pinned MD5 and the exact pinned fallback census, one ITX launch
+   per device picture and none per host picture, and the host stages
+   ("recon", "filter(submit)") beside the device ones;
+9. the device's busy share over a one-frame decode (headline), and over
    the second picture, a P picture, of the inter-LD stream, from
    torch.profiler.
+
+Every timed decode also checks the decoder's fallback census: empty on
+every stream but inter-LMCS.
 
 Each phase prints its wall time.  The last three lines of standard
 output are the kernels' JSON summary, the card's name and power limit,
 and {"ok": true, "device": ...}.  In the summary, launches counts the
-ITX launches of the timed decodes of all six streams and max_abs_err
+ITX launches of the timed decodes of all eight streams and max_abs_err
 covers every comparison of the kernel with its plain version; ms,
 plain_ms and bound_ms are per decoded frame of the headline stream: ms
 is the kernel's device time and plain_ms the plain version's,
@@ -300,11 +313,14 @@ def yuv_md5(frames) -> str:
                                 for f in frames for p in f)).hexdigest()
 
 
-def recording_decode(stream: bytes, label: str, census=None) -> list:
+def recording_decode(stream: bytes, label: str, census=None,
+                     refined=None) -> list:
     """One decode on CUDA that records every itx_frame_cuda call's
     inputs as the decode gives them (the residual planes as they were
     before the call); with `census`, it also counts the TUs of the
-    PyTorch residual paths.  Returns the recorded calls."""
+    PyTorch residual paths; with `refined` (a list), it appends per
+    picture with DMVR or BDOF CUs (POC, DMVR CUs, DMVR subblocks, BDOF
+    CUs, BDOF regions).  Returns the recorded calls."""
     import torch
 
     import vvdec_tpu_torch.ops.frame_device as frame_device
@@ -332,7 +348,17 @@ def recording_decode(stream: bytes, label: str, census=None) -> list:
         return make
 
     saved = (pipeline._ts_fn, pipeline._itx_lfnst_fn, pipeline._itx_fn)
+    plan_refinement = frame_device.McFrame.plan_refinement
+
+    def counting_plan(mf):
+        plan_refinement(mf)
+        refined.append((mf.cs.sh.poc, len(mf.dmvr),
+                        sum(p.n for p in mf.dmvr_plans), len(mf.bdof),
+                        sum(p.n for p in mf.bdof_plans)))
+
     frame_device.itx_frame_cuda = recorder
+    if refined is not None:
+        frame_device.McFrame.plan_refinement = counting_plan
     if census is not None:
         pipeline._ts_fn = counting("transform skip", saved[0])
         pipeline._itx_lfnst_fn = counting("lfnst", saved[1])
@@ -344,42 +370,54 @@ def recording_decode(stream: bytes, label: str, census=None) -> list:
         print(f"[{label}] warm-up decode {time.perf_counter() - t0:.2f} s")
     finally:
         frame_device.itx_frame_cuda = itx_frame_cuda
+        frame_device.McFrame.plan_refinement = plan_refinement
         pipeline._ts_fn, pipeline._itx_lfnst_fn, pipeline._itx_fn = saved
     return recorded
 
 
 def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
-                 label: str) -> dict:
-    """The path as a user drives it: decode_annexb on CUDA, with the
+                 label: str, census=None, device_frames=None) -> dict:
+    """The path as a user drives it: a StreamDecoder on CUDA fed the
+    whole stream, then flushed (what decode_annexb does), with the
     kernels' launch counts set to 0 just before and read just after.
-    Fails unless every frame was decoded with one ITX launch and the
-    YUV has its pinned MD5."""
+    Fails unless the YUV has its pinned MD5, the decoder's fallback
+    census equals `census` (default: empty, every picture on the device)
+    and the ITX kernel was launched once per device picture
+    (`device_frames`, default every frame)."""
     import torch
 
-    from vvdec_tpu_torch.decoder import decode_annexb
+    from vvdec_tpu_torch.decoder import StreamDecoder
     from vvdec_tpu_torch.ops.cuda.itx import itx_batch_cuda, itx_frame_cuda
+    census = census or {}
+    device_frames = n_frames if device_frames is None else device_frames
     itx_frame_cuda.launches = 0
     itx_batch_cuda.launches = 0
     t0 = time.perf_counter()
-    frames = decode_annexb(stream)
+    dec = StreamDecoder()
+    frames = [p.planes for p in dec.push(stream) + dec.flush()]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = itx_frame_cuda.launches
     batch_launches = itx_batch_cuda.launches
     md5 = yuv_md5(frames)
-    print(f"[{label}] decode_annexb on cuda: {len(frames)} frames in "
+    got = dict(dec.fallback_census)
+    print(f"[{label}] StreamDecoder on cuda: {len(frames)} frames in "
           f"{dt:.3f} s = {len(frames) / dt:.2f} frames/s; itx launches "
-          f"{launches} (itx_batch_cuda {batch_launches}); md5 {md5}")
+          f"{launches} (itx_batch_cuda {batch_launches}); md5 {md5}; "
+          f"fallback census {got}")
     fail_unless(len(frames) == n_frames, f"{label}: {len(frames)} frames "
                 f"decoded, expected {n_frames}")
     fail_unless(all(f[0].shape == (480, 832) and f[1].shape == (240, 416)
                     for f in frames), f"{label}: unexpected plane shapes")
-    fail_unless(launches == len(frames), f"{label}: {launches} ITX kernel "
-                f"launches for {len(frames)} decoded frames")
+    fail_unless(launches == device_frames, f"{label}: {launches} ITX kernel "
+                f"launches for {device_frames} pictures decoded on the "
+                f"device")
     fail_unless(md5 == md5_pin, f"{label}: decoded YUV md5 {md5} != pinned "
                 f"{md5_pin}")
+    fail_unless(got == census, f"{label}: fallback census {got} != "
+                f"{census}")
     return dict(fps=len(frames) / dt, decode_s=dt, launches=launches,
-                md5=md5)
+                md5=md5, census=got)
 
 
 def profiled_decode(stream: bytes, n_frames: int, md5_pin: str,
@@ -409,7 +447,8 @@ def profiled_decode(stream: bytes, n_frames: int, md5_pin: str,
     print(f"[{label}] profiled decode {dt_prof:.3f} s; stage ms per frame "
           f"(synchronised):")
     for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
-        print(f"[{label}]   {k:<26} {v:9.3f}")
+        print(f"[{label}]   {k:<26} {v:9.3f} ms in {profiler.counts[k]} "
+              f"calls")
     # the intra stage by mode class: host time of its steps (no sync)
     for k, (v, n) in sorted(steps.items(), key=lambda kv: -kv[1][0]):
         print(f"[{label}]   intra {k:<20} {v:9.3f} ms in {n:6.1f} steps = "
@@ -653,6 +692,66 @@ def wavefront_schedule(stream: bytes, n_frames: int, stages: dict,
     return dict(intra_units=units / n_frames, intra_steps=steps / n_frames)
 
 
+def phase_ra(errs: list) -> dict:
+    """The RA stream: decoded as the inter streams are, with an empty
+    fallback census; the profiled decode must show the DMVR and BDOF
+    stages, and the warm-up decode counts their CUs and subblocks."""
+    from vvdec_tpu_torch.streams import STREAMS
+    name = "RA"
+    builder, n_frames, md5_pin = STREAMS[name]
+    t0 = time.perf_counter()
+    stream = builder()
+    print(f"[{name}] stream 832x480 x {n_frames} frames, {len(stream)} "
+          f"bytes, made in {time.perf_counter() - t0:.1f} s")
+    refined: list = []
+    recorded = recording_decode(stream, name, refined=refined)
+    fail_unless(len(recorded) == n_frames, f"{name}: the warm-up decode "
+                f"made {len(recorded)} itx_frame_cuda calls for {n_frames} "
+                f"frames")
+    res = timed_decode(stream, n_frames, md5_pin, name)
+    check_frames(recorded, errs, name)
+    for poc, dmvr_cus, dmvr_sub, bdof_cus, bdof_reg in refined:
+        print(f"[{name}] POC {poc}: DMVR {dmvr_cus} CUs, {dmvr_sub} "
+              f"subblocks; standalone BDOF {bdof_cus} CUs, {bdof_reg} "
+              f"regions")
+    fail_unless(any(r[1] for r in refined) and any(r[3] for r in refined),
+                f"{name}: no DMVR or no BDOF CU in the stream")
+    stages = profiled_decode(stream, n_frames, md5_pin, name)
+    fail_unless(stages.get("mc: DMVR", 0) > 0 and stages.get("mc: BDOF", 0)
+                > 0, f"{name}: the stage split lacks mc: DMVR or mc: BDOF")
+    res.update(stages_ms_per_frame=stages, refined_per_picture=refined,
+               **wavefront_schedule(stream, n_frames, stages, name))
+    return res
+
+
+def phase_host_recon(errs: list) -> dict:
+    """The inter-LMCS stream: the IDR on the device, the two B pictures
+    (inter LMCS) reconstructed on the host and filtered on the device.
+    The pinned MD5 and census, one ITX launch per device picture, and the
+    host stages beside the device ones in the profiled decode."""
+    from vvdec_tpu_torch.streams import LMCS_INTER_CENSUS, STREAMS
+    name = "inter-LMCS"
+    builder, n_frames, md5_pin = STREAMS[name]
+    device_frames = n_frames - LMCS_INTER_CENSUS["device_recon:lmcs_inter"]
+    t0 = time.perf_counter()
+    stream = builder()
+    print(f"[{name}] stream 832x480 x {n_frames} frames, {len(stream)} "
+          f"bytes, made in {time.perf_counter() - t0:.1f} s")
+    recorded = recording_decode(stream, name)
+    fail_unless(len(recorded) == device_frames, f"{name}: the warm-up "
+                f"decode made {len(recorded)} itx_frame_cuda calls for "
+                f"{device_frames} device pictures")
+    res = timed_decode(stream, n_frames, md5_pin, name,
+                       census=LMCS_INTER_CENSUS, device_frames=device_frames)
+    check_frames(recorded, errs, name)
+    stages = profiled_decode(stream, n_frames, md5_pin, name)
+    fail_unless(stages.get("recon", 0) > 0 and stages.get(
+        "filter(submit)", 0) > 0, f"{name}: the stage split lacks the host "
+                f"reconstruction or the device filter submit")
+    res.update(stages_ms_per_frame=stages, device_frames=device_frames)
+    return res
+
+
 def busy_in(spans, a: float, b: float) -> float:
     """The union of the device intervals `spans` (sorted (start, end,
     name)) clipped to [a, b], in the profiler's microseconds."""
@@ -826,6 +925,8 @@ def main(argv=None) -> int:
         main_path = timed("main", phase_main_path, errs)
         tool_set = timed("tool set", phase_tool_set, errs)
         inter = timed("inter", phase_inter, errs)
+        ra = timed("RA", phase_ra, errs)
+        host = timed("host recon", phase_host_recon, errs)
         main_path["profile"] = timed("profile", phase_device_busy)
         inter["profile P picture"] = timed("profile P", phase_inter_busy)
     except SmokeFailure as e:
@@ -833,7 +934,7 @@ def main(argv=None) -> int:
         return 1
     launches = main_path["launches"] + sum(
         r["launches"] for r in (*tool_set.values(), inter["inter-LD"],
-                                inter["inter-LDB tools"]))
+                                inter["inter-LDB tools"], ra, host))
     kernels = [dict(
         name="itx_frame", route="cuda", source="vvdec_tpu_torch/csrc/itx.cu",
         replaces="vvdec_tpu/ops/pallas/itx.py:96",
@@ -845,7 +946,8 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kernels=kernels, main_path=main_path,
-                           tool_set=tool_set, inter=inter), f, indent=1)
+                           tool_set=tool_set, inter=inter, ra=ra,
+                           host_recon=host), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ on the intra streams of tests/test_frame_device.py (planar, DC and
 angular; MIP, CCLM, intra LMCS with and without chroma residual scaling;
 SAO; and tests/test_device_pipeline.py's ALF + CC-ALF stream), and to
 its device pipeline (`use_jax=True`) on two of them.  Pictures outside
-the port's tool set raise NotImplementedError naming the reason; there
-is no fallback.
+the device pipeline's tool set are reconstructed on the host and counted
+in the decoder's fallback census with their reason
+(tests/test_torch_fallback.py holds them to the reference's census).
 """
 
 import hashlib
@@ -204,12 +205,23 @@ def _rejected_streams():
 
 @pytest.mark.parametrize("reason", ["isp", "dmvr", "bdof", "lmcs_inter"])
 def test_unported_tools_raise(reason):
-    """A picture the port cannot run raises, naming the reason; the
-    reference's census names the same picture as a host fallback."""
-    from vvdec_tpu_torch.decoder import decode_annexb
+    """The tools the port once rejected: an ISP or inter-LMCS picture is
+    reconstructed on the host and counted under its reason, as the
+    reference's census counts it; DMVR and BDOF pictures run the device
+    refinement stage with nothing counted.  The output equals the host
+    golden's either way, and no picture raises."""
+    from vvdec_tpu.decoder import decode_annexb as golden
+    from vvdec_tpu_torch.decoder import StreamDecoder
     s = _rejected_streams()[reason]()
-    with pytest.raises(NotImplementedError, match=f"device_recon:{reason}$"):
-        decode_annexb(s, device="cpu")
+    dec = StreamDecoder(device="cpu")
+    pics = dec.push(s) + dec.flush()
+    _assert_equal(golden(s), [p.planes for p in pics])
+    rejected = {k: v for k, v in dec.fallback_census.items()
+                if k.startswith("device_recon:")}
+    if reason in ("dmvr", "bdof"):
+        assert dict(dec.fallback_census) == {}
+    else:
+        assert set(rejected) == {f"device_recon:{reason}"}
 
 
 def test_default_device_is_cuda_and_raises_without_it():

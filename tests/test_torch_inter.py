@@ -3,9 +3,9 @@
 Tolerance: bit-equal.  vvdec_tpu_torch.decoder.decode_annexb(s,
 device="cpu") is held to the JAX package's host golden decode on the
 streams of tests/test_frame_device.py::TestFrameDeviceInter (all but the
-DMVR one: the port rejects DMVR pictures) and on a low-delay B stream
-with GPM, SbTMVP, affine + PROF, CIIP and BCW, and to the JAX device
-pipeline (`use_jax=True`) on one stream.
+DMVR one, which tests/test_torch_ra_stream.py decodes) and on a
+low-delay B stream with GPM, SbTMVP, affine + PROF, CIIP and BCW, and to
+the JAX device pipeline (`use_jax=True`) on one stream.
 """
 
 import numpy as np

@@ -121,7 +121,7 @@ def test_stream_parameters_match_bench():
     """The tool-rich (its first 4 frames) and inter-LD parameters are
     bench.py's, the inter-LDB tools ones test_full_toolset_ab's with
     PROF, and the streams table lists the headline stream with its
-    pin."""
+    pin, then the others in chip_smoke.py's order."""
     assert S.TOOL_RICH_STREAM_KW == dict(BENCH_TOOL_RICH, n_frames=4)
     assert S.SAO_ALF_STREAM_KW == dict(w=832, h=480, n=4, seed=1)
     assert S.INTER_LD_STREAM_KW == dict(w=832, h=480, n=12, seed=5,
@@ -131,4 +131,6 @@ def test_stream_parameters_match_bench():
         sps_kw=dict(FULL_TOOLSET_SPS, prof_enabled=True),
         dec_kw=FULL_TOOLSET_DEC)
     assert S.STREAMS["headline"][2] == S.HEADLINE_MD5
-    assert list(S.STREAMS) == ["headline"] + NAMES
+    # the RA and inter-LMCS streams: tests/test_torch_ra_stream.py and
+    # tests/test_torch_fallback.py check their bytes and pins
+    assert list(S.STREAMS) == ["headline"] + NAMES + ["RA", "inter-LMCS"]

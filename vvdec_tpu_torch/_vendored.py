@@ -21,7 +21,8 @@ VENDORED = (
     "frame/__init__.py", "frame/structure.py", "frame/recon_np.py",
     "frame/deblock_np.py", "frame/inter_np.py", "frame/rpr_np.py",
     "frame/lmcs_np.py", "frame/alf_np.py", "frame/dmvr_np.py",
-    "frame/geo_np.py", "frame/affine_np.py",
+    "frame/geo_np.py", "frame/affine_np.py", "frame/recon_native.py",
+    "frame/inter_native.py", "frame/sao_np.py",
     "native/__init__.py", "native/cabac.c", "native/walk.c",
     "native/walk2.c", "native/walk3.c", "native/walk4.c", "native/walk5.c",
     "native/walk6.c", "native/walk7.c", "native/walk8.c", "native/walk9.c",

@@ -7,16 +7,27 @@ device pipeline reconstructs per frame.
 
 A copy of vvdec_tpu/decoder.py with these changes: `use_jax` becomes
 `device` (resolved by device.resolve_device: CUDA unless the caller asks
-for the CPU); every picture runs the port's device pipeline
-(ops/frame_device.py), and a picture outside its tool set raises
-NotImplementedError("device_recon:<reason>") — there is no host
-reconstruction or host filter fallback.  Inter pictures resolve their
-reference sets per slice and read their references from the device DPB
-(`_refs_dev`: each decoded picture's filtered planes, kept on the device
-until the next IDR); a missing reference raises ValueError, as the
-reference's strict mode does.  Not carried over: the concealment of lost
-references and broken pictures (err_policy="conceal"), the
-recon-while-parse thread pool and the command-line entry point.
+for the CPU), and the device pipeline (ops/frame_device.py) is the only
+way a picture is decoded unless `plan_frame_device` rejects it.  The
+device pipeline takes every intra tool but ISP, MRL and BDPCM, and
+inter pictures with translational MC, BCW, WP, SbTMVP, GPM, affine +
+PROF, CIIP, DMVR and BDOF (the CUs these two refine take the device
+refinement stage).  A picture it rejects is reconstructed on the host
+(frame/recon_np.IntraReconstructor) and filtered by the device filter
+chain, or by the host filters when `device_filter_reject_reason`
+rejects the picture too, as the reference does with use_jax=True; each
+such picture counts its reason in `fallback_census`.  Nothing else
+sends a picture to the host: no option or environment variable forces
+either path, and a CUDA error, a failed kernel build or a missing card
+raises.  Inter pictures resolve their reference sets per slice and read
+their references from the device DPB (`_refs_dev`: each decoded
+picture's filtered planes, kept on the device until the next IDR); a
+host-reconstructed picture reads them back once per POC (`_refs_host`)
+and enters the device DPB itself.  A missing reference raises
+ValueError, as the reference's strict mode does.  Not carried over: the
+concealment of lost references and broken pictures
+(err_policy="conceal"), the recon-while-parse thread pool, the public
+api.Decoder and the command-line entry point.
 """
 
 from __future__ import annotations
@@ -26,7 +37,7 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
-
+import torch
 
 from vvdec_tpu_torch.bitstream.nal import NalUnitType, read_nal_units
 from vvdec_tpu_torch.bitstream.reader import BitReader
@@ -272,7 +283,8 @@ class FrameParser:
 
 class _DeferredFrame:
     """In-flight device-filtered frame: resolves to pixel planes on first
-    use for output, running the deferred DPH check."""
+    use (as a host picture's reference or for output), running the
+    deferred DPH check."""
 
     def __init__(self, dec, pending, sei, poc, bit_depth) -> None:
         self._dec = dec
@@ -280,15 +292,20 @@ class _DeferredFrame:
         self._sei = sei
         self._poc = poc
         self._bd = bit_depth
+        self._planes32 = None
         self._u16 = None
 
-    def resolve_u16(self) -> list:
-        if self._u16 is None:
-            planes32 = self._pending.resolve()
+    def resolve_int32(self) -> list:
+        if self._planes32 is None:
+            self._planes32 = self._pending.resolve()
             self._pending = None
-            self._u16 = [u16_view(p) for p in planes32]
+            self._u16 = [u16_view(p) for p in self._planes32]
             self._dec._check_dph(self._sei, self._u16, self._bd,
                                  self._poc)
+        return self._planes32
+
+    def resolve_u16(self) -> list:
+        self.resolve_int32()
         return self._u16
 
 
@@ -311,9 +328,13 @@ class StreamDecoder:
     dispatch to the parser, one-picture parse-ahead (a picture is
     reconstructed when the next one begins, so its suffix SEIs — notably
     the decoded-picture-hash — are attached first), reference management
-    with a device-resident DPB, and DPB output bumping.  The reference's
-    concealment of broken streams and its recon-while-parse thread pool
-    are not carried over."""
+    with a device-resident DPB, and DPB output bumping.  Pictures the
+    device pipeline rejects are reconstructed on the host and counted in
+    `fallback_census` (a Counter with the reference's keys:
+    device_recon:<reason>, device_filter:<reason>, intra_c:, inter_c:,
+    tu_python, tu_native).  The reference's concealment of broken
+    streams and its recon-while-parse thread pool are not carried
+    over."""
 
     def __init__(self, device=None, strict_hash: bool = True):
         """device: where the reconstruction runs (default CUDA; raises when
@@ -325,10 +346,18 @@ class StreamDecoder:
         self.device = resolve_device(device)
         self.strict_hash = strict_hash
         self.hash_errors = 0
+        # per-picture fallback census: every picture the device pipeline
+        # rejects is counted here with its reason, as are the host
+        # reconstruction's own fallbacks from its C paths
+        from collections import Counter
+        self.fallback_census = Counter()
         # the device DPB: poc -> the filtered planes on the device (the
         # PendingFrame's planes_dev, kept past its readback), plus what
         # later pictures' motion derivation and RPR check read
         self._refs_dev: dict[int, tuple] = {}
+        # poc -> the in-flight frame or its int32 host planes: what a
+        # host-reconstructed picture reads its references from
+        self._refs_host: dict[int, object] = {}
         self._ref_cols: dict[int, object] = {}  # poc -> ColMotion
         self._ref_pps: dict[int, object] = {}   # poc -> PPS (RPR scaling)
         self._pending: ParsedFrame | None = None
@@ -377,6 +406,27 @@ class StreamDecoder:
             if p is None:
                 return out
             out.append(p)
+
+    def _ref_planes_of(self, poc: int) -> list:
+        """A DPB picture's int32 host planes: a device picture resolves
+        its output readback once, and the planes stay cached by POC until
+        the next IDR."""
+        v = self._refs_host[poc]
+        if isinstance(v, _DeferredFrame):
+            v = v.resolve_int32()
+            self._refs_host[poc] = v
+        return v
+
+    def _host_ref_sets(self, cs) -> None:
+        """Swap the device planes of cs's reference sets for host planes,
+        for the host reconstruction."""
+        def host(pocs):
+            return [[self._ref_planes_of(p) for p in lst] for lst in pocs]
+
+        cs.slice_ref_sets = [
+            None if st is None else (st[0], host(st[0])) + tuple(st[2:])
+            for st in cs.slice_ref_sets]
+        cs.ref_planes = host(cs.ref_pocs)
 
     def _random_access_skip(self, f: ParsedFrame) -> bool:
         """RASL pictures associated with the RAP we tuned in at are not
@@ -503,6 +553,7 @@ class StreamDecoder:
             # handling is trivial here: they remain output-marked)
             self.plm.unmark_all_references()
             self._refs_dev.clear()
+            self._refs_host.clear()
             self._ref_cols.clear()
             self._ref_pps.clear()
         self._num_reorder = cs.sps.num_reorder_pics[-1]
@@ -511,34 +562,80 @@ class StreamDecoder:
         t_pic = time.monotonic()
         # full device pipeline: ITX + MC + intra chain + filters + packing
         # in one device-resident flow (ops/frame_device.py); it times its
-        # host stages itself ("plan (host)", "motion (host)")
+        # host stages itself ("plan (host)", "motion (host)").  A picture
+        # it rejects is reconstructed on the host, then filtered on the
+        # device, or on the host when the device chain rejects it too
+        from vvdec_tpu_torch.ops.device_pipeline import (
+            device_filter_reject_reason, filter_frame_device)
         from vvdec_tpu_torch.ops.frame_device import (
             plan_frame_device, reconstruct_frame_device)
         desc, dev_reason = plan_frame_device(cs)
-        if desc is None:
-            raise NotImplementedError(f"device_recon:{dev_reason}")
+        planes = None
+        if desc is not None:
+            def get_ref(lst, ref_idx, comp):
+                return cs.ref_planes[lst][ref_idx][comp]
 
-        def get_ref(lst, ref_idx, comp):
-            return cs.ref_planes[lst][ref_idx][comp]
-
-        pending = reconstruct_frame_device(cs, desc, get_ref,
-                                           device=self.device)
-        # device-resident DPB entry, stored before the readback drops the
-        # PendingFrame's device planes: later pictures gather their MC
-        # references from it without a host round trip
-        self._refs_dev[f.poc] = tuple(pending.planes_dev)
-        deferred = _DeferredFrame(self, pending, f.sei, f.poc,
-                                  cs.sps.bit_depth)
-        # DMVR-refined MVs enter the motion field only after deblocking
-        # strength derivation (TaskFinishMotionInfo, DecCu.cpp:161-213);
-        # the DMVR stage (not ported: plan_frame_device rejects its
-        # pictures) fills cs.dmvr_fixups
-        for x2, y2, mv0, mv1 in getattr(cs, "dmvr_fixups", ()):
-            cs.mi_mv[y2 >> 2, x2 >> 2, 0] = mv0
-            cs.mi_mv[y2 >> 2, x2 >> 2, 1] = mv1
+            pending = reconstruct_frame_device(cs, desc, get_ref,
+                                               device=self.device)
+        else:
+            self.fallback_census[f"device_recon:{dev_reason}"] += 1
+            reason = device_filter_reject_reason(cs)
+            if reason is not None:
+                self.fallback_census[f"device_filter:{reason}"] += 1
+            self._host_ref_sets(cs)
+            from vvdec_tpu_torch.frame.recon_np import IntraReconstructor
+            with profiler.stage("recon"):
+                planes = IntraReconstructor(
+                    cs, census=self.fallback_census).run()
+            pending = None
+            if reason is None:
+                # the device filter chain; its deblocking strengths are
+                # derived before the DMVR MV fixups below, as on the host
+                with profiler.stage("filter(submit)"):
+                    pending = filter_frame_device(cs, [
+                        torch.tensor(p, device=self.device) for p in planes])
+            else:
+                from vvdec_tpu_torch.frame.alf_np import alf_frame_vec
+                from vvdec_tpu_torch.frame.deblock_np import deblock_frame
+                from vvdec_tpu_torch.frame.sao_np import sao_frame
+                with profiler.stage("deblock"):
+                    deblock_frame(cs, planes)
+                with profiler.stage("sao"):
+                    sao_frame(cs, planes)
+                with profiler.stage("alf"):
+                    planes = alf_frame_vec(cs, planes)
+        if pending is not None:
+            # device-resident DPB entry, stored before the readback drops
+            # the PendingFrame's device planes: later pictures gather
+            # their MC references from it without a host round trip
+            self._refs_dev[f.poc] = tuple(pending.planes_dev)
+            deferred = _DeferredFrame(self, pending, f.sei, f.poc,
+                                      cs.sps.bit_depth)
+            self._refs_host[f.poc] = deferred
+        else:
+            # host-filtered planes enter the device DPB, uploaded once
+            self._refs_dev[f.poc] = tuple(
+                torch.tensor(p, device=self.device) for p in planes)
+            deferred = None
+            self._refs_host[f.poc] = planes
+        # DMVR-refined MVs enter the motion field only after the
+        # deblocking strengths are derived (TaskFinishMotionInfo,
+        # DecCu.cpp:161-213): the device refinement stage leaves a
+        # LazyDmvrFixups in cs.dmvr_fixups (iterating it waits for the
+        # refined MVs' own readback only), the host reconstruction a list
+        fixups = getattr(cs, "dmvr_fixups", ())
+        if fixups:
+            with profiler.stage("dmvr fixups"):
+                for x2, y2, mv0, mv1 in fixups:
+                    cs.mi_mv[y2 >> 2, x2 >> 2, 0] = mv0
+                    cs.mi_mv[y2 >> 2, x2 >> 2, 1] = mv1
         self._ref_pps[f.poc] = cs.pps
         with profiler.stage("motion (host)"):
             self._ref_cols[f.poc] = ColMotion(cs, f.poc)
+        if deferred is None:
+            out_planes = [u16_view(p) for p in planes]
+            self._check_dph(f.sei, out_planes, cs.sps.bit_depth, f.poc,
+                            cs=cs)
         # per-POC decode log + trace (reference per-picture log line,
         # DecLib.cpp:395-438; D_PIC trace channel)
         st = "IDR" if f.is_idr else ("I" if cs.sh.is_intra else
@@ -556,7 +653,7 @@ class StreamDecoder:
                 needed = False
         self.plm.add(DecodedPicture(
             poc=f.poc,
-            planes=None,
+            planes=None if deferred is not None else out_planes,
             pending=deferred,
             bit_depth=cs.sps.bit_depth,
             is_idr=f.is_idr, sei=f.sei, width=cs.w, height=cs.h,

@@ -1,11 +1,11 @@
 """Device-resident whole-frame reconstruction.
 
-Port of vvdec_tpu/ops/frame_device.py, all but its DMVR / BDOF stage:
-dequant + inverse transform (the ITX stage: every plain TU of the frame
-in one launch of the hand-written kernel on CUDA, transform-skip, LFNST
-and scaling-list TUs batched per shape in PyTorch), motion compensation
-of the inter CUs off the device-resident reference planes (translational
-uni / bi / BCW / weighted, SbTMVP, GPM, affine with PROF; CIIP CUs keep
+Port of vvdec_tpu/ops/frame_device.py: dequant + inverse transform (the
+ITX stage: every plain TU of the frame in one launch of the hand-written
+kernel on CUDA, transform-skip, LFNST and scaling-list TUs batched per
+shape in PyTorch), motion compensation of the inter CUs off the
+device-resident reference planes (translational uni / bi / BCW /
+weighted, SbTMVP, GPM, affine with PROF, DMVR and BDOF; CIIP CUs keep
 their raw inter prediction for the intra scan's blend), the intra
 wavefront scan (ops/intra_device.py; with LMCS, in the reshaped domain,
 followed by the inverse luma map), then the in-loop filter chain
@@ -13,7 +13,7 @@ followed by the inverse luma map), then the in-loop filter chain
 (ops/device_pipeline.py), all in device memory.  The host uploads one
 int16 coefficient plane per component, one packed MC parameter buffer
 and a few descriptor and parameter arrays per frame and reads back one
-packed buffer.
+packed buffer (and the refined DMVR MVs).
 
 Differences from the JAX stages, none of which changes a decoded sample:
 the plain TUs run in one launch instead of one per shape group; the MC
@@ -21,8 +21,9 @@ batches run both lists of a (component, shape) class in one gather and
 combine every block of the class in one pass; no batch is padded to a
 power of two (PyTorch runs eagerly and compiles nothing per shape); the
 residual and reconstruction planes are updated in place.  Pictures
-outside the ported tool set are rejected by `plan_frame_device` with a
-named reason; there is no host fallback.
+outside the device tool set are rejected by `plan_frame_device` with a
+named reason; the decoder reconstructs them on the host and counts the
+reason.
 """
 
 from __future__ import annotations
@@ -38,6 +39,13 @@ from vvdec_tpu_torch.ops.cuda.itx import (
     frame_table,
     itx_frame_cuda,
     matrix_pool,
+)
+from vvdec_tpu_torch.ops.dmvr_device import (
+    LazyDmvrFixups,
+    plan_bdof,
+    plan_dmvr,
+    run_bdof_groups,
+    run_dmvr_groups,
 )
 from vvdec_tpu_torch.ops.device_pipeline import (
     device_filter_reject_reason,
@@ -433,17 +441,21 @@ class _Batch:
 
 class McFrame:
     """One picture's inter prediction: the host plans every MC part and
-    block, batched per (component, shape, family); `predict` uploads the
-    plan in one copy, pads each reference plane once per component and
-    runs each batch as one MC launch (both lists together), PROF for
-    affine luma, and one combine.  The reference planes are keyed by POC
-    (`refs`), not by object identity, and padded by the CTU size + 24
-    (the reach of a clipped MV and its filter taps).
+    block, batched per (component, shape, family), and every DMVR
+    subblock and BDOF region, batched per shape (`plan_refinement`);
+    `predict` uploads the plan in one copy, pads each reference plane
+    once per component and runs each batch as one MC launch (both lists
+    together), PROF for affine luma, and one combine, then the DMVR and
+    BDOF classes (ops/dmvr_device.py).  The reference planes are keyed
+    by POC (`refs`), not by object identity, and padded by the CTU size
+    + 24 (the reach of a clipped MV, its filter taps and the DMVR
+    search), chroma by that margin // sub_h.
     Grouping and arithmetic as vvdec_tpu's _mc_reconstruct_device
-    (regular / SbTMVP, GPM and affine + PROF sections)."""
+    (regular / SbTMVP, GPM, affine + PROF and DMVR / BDOF sections)."""
 
     FAMILY_STAGE = {"regular": "mc: regular", "GPM": "mc: GPM",
-                    "affine": "mc: affine+PROF"}
+                    "affine": "mc: affine+PROF", "DMVR": "mc: DMVR",
+                    "BDOF": "mc: BDOF"}
 
     def __init__(self, cs):
         self.cs = cs
@@ -452,6 +464,19 @@ class McFrame:
         self.batches: dict = {}
         self.refs: dict = {}     # poc -> (index, lst, ref_idx)
         self.up = _Upload()
+        self.dmvr: list = []     # (cu, bdof flag) of the DMVR CUs
+        self.bdof: list = []     # the standalone BDOF CUs
+        self.dmvr_plans: list = []
+        self.bdof_plans: list = []
+        self.fixups = LazyDmvrFixups()
+
+    def _ref_index(self, lst, ref_idx) -> int:
+        """The index of reference (lst, ref_idx) in the stacked planes:
+        one per POC."""
+        poc = self.cs.ref_pocs[lst][ref_idx]
+        if poc not in self.refs:
+            self.refs[poc] = (len(self.refs), lst, ref_idx)
+        return self.refs[poc][0]
 
     def _batch(self, comp, cw, ch, family) -> _Batch:
         key = (family, comp, cw, ch)
@@ -468,9 +493,6 @@ class McFrame:
         per block (affine subblocks) and returns their indices."""
         cs = self.cs
         comp = b.comp
-        poc = cs.ref_pocs[lst][ref_idx]
-        if poc not in self.refs:
-            self.refs[poc] = (len(self.refs), lst, ref_idx)
         half = 3 if comp == 0 else 1
         fxb = 4 + (cs.sub_w - 1) if comp else 4
         fyb = 4 + (cs.sub_h - 1) if comp else 4
@@ -481,8 +503,8 @@ class McFrame:
         if comp:
             f_x <<= (5 - fxb)
             f_y <<= (5 - fyb)
-        row = [by + iy - half + m, bx + ix - half + m, self.refs[poc][0],
-               int(inter)]
+        row = [by + iy - half + m, bx + ix - half + m,
+               self._ref_index(lst, ref_idx), int(inter)]
         dmv = None
         if prof is not None:
             # affine luma: the PROF window's origin, flags and dMv grids
@@ -546,10 +568,11 @@ class McFrame:
         from vvdec_tpu_torch.frame.inter_np import BCW_INTERN, BCW_WEIGHTS
         return 4 if cu.bcw_idx == 0 else BCW_WEIGHTS[BCW_INTERN[cu.bcw_idx]]
 
-    def add_regular(self, cu) -> None:
+    def add_regular(self, cu, comps=None) -> None:
         """A whole-CU translational block (or an SbTMVP 8x8 subblock):
         uni, bi (average / BCW) or explicit WP; a CIIP CU keeps its raw
-        inter prediction for the intra scan's blend."""
+        inter prediction for the intra scan's blend.  comps: the
+        components to plan (default all)."""
         from vvdec_tpu_torch.frame.dmvr_np import _wp_present
         from vvdec_tpu_torch.frame.inter_np import clip_mv
         cs = self.cs
@@ -559,7 +582,7 @@ class McFrame:
         kind = _WP if wp_on else (_BI if bi else _UNI)
         mvs = [clip_mv(tuple(cu.mv[lst]), cu.x, cu.y, cs, size=(cu.w, cu.h))
                if cu.inter_dir & (1 << lst) else None for lst in (0, 1)]
-        for comp in range(cs.num_comp):
+        for comp in range(cs.num_comp) if comps is None else comps:
             cw = cu.w if comp == 0 else cu.w // cs.sub_w
             ch = cu.h if comp == 0 else cu.h // cs.sub_h
             bx, by = (cu.x, cu.y) if comp == 0 else (cu.cx, cu.cy)
@@ -677,6 +700,31 @@ class McFrame:
         for comp in (1, 2):
             blocks(comp, cu.cx + 4 * c.ravel(), cu.cy + 4 * r.ravel(), cmv)
 
+    def add_dmvr(self, cu, bio: bool) -> None:
+        """A CU that DMVR refines (with BDOF on its subblocks when
+        `bio`): planned with the others in `plan_refinement`."""
+        self.dmvr.append((cu, bio))
+
+    def add_bdof(self, cu) -> None:
+        """A standalone BDOF CU: its luma regions are planned in
+        `plan_refinement`; its chroma is the regular bi-average (BDOF
+        refines luma only; the CU has default weights and no WP)."""
+        self.bdof.append(cu)
+        self.add_regular(cu, comps=range(1, self.cs.num_comp))
+
+    def plan_refinement(self) -> None:
+        """Plan the DMVR subblocks and BDOF regions (numpy, into the
+        upload)."""
+        if self.dmvr:
+            self.dmvr_plans = plan_dmvr(self.cs, self.dmvr, self._ref_index,
+                                        self.margin, self.up)
+        if self.bdof:
+            self.bdof_plans = plan_bdof(self.cs, self.bdof, self._ref_index,
+                                        self.margin, self.up)
+
+    def empty(self) -> bool:
+        return not (self.batches or self.dmvr or self.bdof)
+
     def _pack(self) -> None:
         """Per batch, its arrays into the upload (handles on the batch)."""
         from vvdec_tpu_torch.frame.inter_np import LUMA_IF_4X4
@@ -705,10 +753,14 @@ class McFrame:
     def _refs_stacked(self, get_ref, dev) -> dict:
         """comp -> [R, hp, wp]: every reference plane of the picture, padded
         once and stacked once per component."""
-        comps = sorted({b.comp for b in self.batches.values()})
+        comps = {b.comp for b in self.batches.values()}
+        if self.bdof:
+            comps.add(0)
+        if self.dmvr:
+            comps.update(range(self.cs.num_comp))
         order = sorted(self.refs.values())
         out = {}
-        for comp in comps:
+        for comp in sorted(comps):
             m = self.margin // (self.cs.sub_h if comp else 1)
             out[comp] = torch.stack([pad_ref(get_ref(lst, ri, comp), m)
                                      for _, lst, ri in order])
@@ -761,6 +813,14 @@ class McFrame:
         for b in sorted(self.batches.values(), key=lambda b: b.family):
             with timed_stage(self.FAMILY_STAGE[b.family], dev):
                 out.append((b, self._run(b, refs[b.comp])))
+        if self.dmvr_plans:
+            with timed_stage(self.FAMILY_STAGE["DMVR"], dev):
+                out += run_dmvr_groups(self.cs, self.dmvr_plans, self.up,
+                                       refs, self.margin, self.fixups)
+        if self.bdof_plans:
+            with timed_stage(self.FAMILY_STAGE["BDOF"], dev):
+                out += run_bdof_groups(self.cs, self.bdof_plans, self.up,
+                                       refs)
         return out
 
 
@@ -769,9 +829,12 @@ def _mc_reconstruct_device(cs, recon, resi, get_ref):
     written in place into the padded recon planes (CIIP components keep
     the raw prediction: the intra scan blends and reconstructs them).
     Reference planes come from get_ref(lst, ref_idx, comp), device-
-    resident DPB entries, so no pixel upload happens here.  The picture
-    is one that plan_frame_device accepted: it holds no CU that DMVR or
-    BDOF would refine, so every remaining CU takes the regular path."""
+    resident DPB entries, so no pixel upload happens here.  A CU that
+    DMVR refines carries its BDOF flag into the DMVR stage, a standalone
+    BDOF CU goes to the BDOF stage (the split of the host recon driver,
+    recon_np.py:1619-1636), and cs.dmvr_fixups receives the refined MVs
+    for the decoder's motion-field fixups."""
+    from vvdec_tpu_torch.frame.dmvr_np import bdof_condition, dmvr_condition
     dev = recon[0].device
     bd = cs.sps.bit_depth
     with profiler.stage("mc: plan (host)"):
@@ -785,11 +848,20 @@ def _mc_reconstruct_device(cs, recon, resi, get_ref):
                 mf.add_sbtmvp(cu)
             elif cu.affine_flag:
                 mf.add_affine(cu)
+            elif dmvr_condition(cs, cu):
+                mf.add_dmvr(cu, bdof_condition(cs, cu))
+            elif bdof_condition(cs, cu):
+                mf.add_bdof(cu)
             else:
                 mf.add_regular(cu)
-    if not mf.batches:
+        mf.plan_refinement()
+    if mf.empty():
         return recon
     preds = mf.predict(get_ref, dev)
+    if mf.dmvr:
+        # the decoder applies these to the motion field after the
+        # deblocking strengths are derived (TaskFinishMotionInfo order)
+        cs.dmvr_fixups = mf.fixups
     with timed_stage("mc: scatter", dev):
         for b, pred in preds:
             comp = b.comp
@@ -810,14 +882,25 @@ def _mc_reconstruct_device(cs, recon, resi, get_ref):
 
 def plan_frame_device(cs):
     """(intra descriptor array, None) when this picture can run the
-    port's device pipeline, else (None, reason).  The reasons are the
-    reference's gates, in its order (filter_*, per_slice_rpl, the
-    descriptor builder's, lmcs_inter, mc_tool), then the tools this port
-    does not carry yet: dmvr and bdof (a CU the DMVR or BDOF refinement
-    would run on).  For inter pictures this runs the host motion
-    derivation (timed as "motion (host)"), which the MC stage reads."""
+    port's device pipeline, else (None, reason): the decoder then
+    reconstructs it on the host and counts the reason in its census.
+    The reasons are the reference's gates, in its order (filter_*,
+    per_slice_rpl, the descriptor builder's, lmcs_inter, mc_tool).  A
+    CU that DMVR or BDOF refines takes the device refinement stage
+    (ops/dmvr_device.py); with scaled references it is mc_tool, as every
+    other CU outside the device batches is.  For inter pictures this
+    runs the host motion derivation (timed as "motion (host)"), which
+    the MC stage reads."""
     from vvdec_tpu_torch.frame.dmvr_np import bdof_condition, dmvr_condition
     from vvdec_tpu_torch.ops.mc_device import _cu_mc_eligible
+
+    def _reject():
+        # an aborted motion pass: drop the per-picture motion context so
+        # that the host reconstruction derives it again with its own
+        # HMVP buffers
+        if hasattr(cs, "_mctx"):
+            del cs._mctx
+        return None, "mc_tool"
 
     with profiler.stage("plan (host)"):
         reason = device_filter_reject_reason(cs)
@@ -841,7 +924,6 @@ def plan_frame_device(cs):
     with profiler.stage("motion (host)"):
         derive_frame_motion(cs)
         any_scaled = any(s is not None for lst in cs.ref_scaled for s in lst)
-        unported = None
         for cu in cs.cus:
             if cu.pred_mode == MODE_INTRA:
                 continue
@@ -850,18 +932,16 @@ def plan_frame_device(cs):
                 # GPM / affine (+PROF) / SbTMVP subblock batches; scaled
                 # references stay out of scope
                 if any_scaled:
-                    return None, "mc_tool"
+                    return _reject()
                 continue
-            if _cu_mc_eligible(cs, cu):
+            if dmvr_condition(cs, cu) or bdof_condition(cs, cu):
+                # the device refinement stage; the scaled-reference
+                # gather windows stay out of scope
+                if any_scaled:
+                    return _reject()
                 continue
-            # DMVR / BDOF CUs are ineligible there; with scaled references
-            # they stay out of scope, as every other ineligible CU does
-            dmvr = dmvr_condition(cs, cu)
-            if any_scaled or not (dmvr or bdof_condition(cs, cu)):
-                return None, "mc_tool"
-            unported = unported or ("dmvr" if dmvr else "bdof")
-    if unported is not None:
-        return None, unported
+            if not _cu_mc_eligible(cs, cu):
+                return _reject()
     return desc, None
 
 

@@ -1,14 +1,14 @@
 """Device inter prediction: batched motion compensation in PyTorch.
 
-Port of vvdec_tpu/ops/mc_device.py (the MC, bi-combine and explicit
-weighted-prediction cores, the coefficient-row selection, the
-whole-CU eligibility test and the `mc_frame_device` batch driver; the
-DMVR and BDOF cores are the next slice).  All blocks of one (w, h, taps)
-class run as one batch: the windows are one gather from pre-padded
-reference planes, placed as lax.dynamic_slice places them
-(`_win_start`), and the separable FIR and every rounding and clipping
-step are int32 multiply-adds on shifted slices at the reference's 14-bit
-intermediate precision.  Fractional position 0 runs the identity row
+Port of vvdec_tpu/ops/mc_device.py: the MC, bi-combine and explicit
+weighted-prediction cores, the DMVR 25-point SAD and the BDOF blend
+(their drivers are ops/dmvr_device.py), the coefficient-row selection,
+the whole-CU eligibility test and the `mc_frame_device` batch driver.
+All blocks of one (w, h, taps) class run as one batch: the windows are
+one gather from pre-padded reference planes, placed as
+lax.dynamic_slice places them (`_win_start`), and the separable FIR and
+every rounding and clipping step are int32 multiply-adds on shifted
+slices at the reference's 14-bit intermediate precision.  Fractional position 0 runs the identity row
 ([..,64,..]) through the same two passes, which is bit-exact with the
 reference's copy and single-pass branches, so one kernel covers copy,
 H-only, V-only, HV and the alternate half-pel filter.
@@ -16,8 +16,9 @@ H-only, V-only, HV and the alternate half-pel filter.
 Parity targets: InterpolationFilter::filter{Hor,Ver} 14-bit pipeline
 (InterpolationFilter.h:65-120), AreaBuf::addAvg / addWeightedAvg,
 WeightPrediction::addWeightUni / addWeightBi (WeightPrediction.cpp:
-164,240); the host goldens are frame/inter_np.mc_block, bi_average,
-bi_weighted.
+164,240), xProcessDMVR's SAD and applyBiOptFlow (InterPrediction.cpp:
+1847, 1290); the host goldens are frame/inter_np.mc_block, bi_average,
+bi_weighted and frame/dmvr_np.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from vvdec_tpu_torch.device import resolve_device
-from vvdec_tpu_torch.ops.intra_device import _win_start
+from vvdec_tpu_torch.ops.intra_device import _powers_of_two, _win_start
 
 IF_INTERNAL_PREC = 14
 IF_FILTER_PREC = 6
@@ -144,6 +145,116 @@ def wp_combine_core(w: int, h: int, bd: int):
     return apply
 
 
+# DMVR search offsets, raster order (xProcessDMVR's 25-point pattern)
+_DMVR_OFFS = tuple((hor, ver) for ver in range(-2, 3)
+                   for hor in range(-2, 3))
+
+
+@functools.lru_cache(maxsize=None)
+def dmvr_sad25_core(dx: int, dy: int):
+    """25-point DMVR SAD: bl0, bl1 [N, dy+4, dx+4] 10-bit bilinear blocks
+    (centre at (2, 2)) -> [N, 25] int32, raster (ver -2..2) x (hor
+    -2..2): the SAD over the even rows (subShift=1, RdCost SAD with the
+    callers' >>1 pre-applied) of bl0 at (ver, hor) against bl1 at the
+    mirrored offset.  All 25 windows are one strided view of each
+    block."""
+
+    def apply(bl0, bl1):
+        # [N, 5, 5, dy, dx]: window (ver, hor) of each block; list 1
+        # reads the mirrored offset, so its window grid is flipped
+        a = bl0.unfold(1, dy, 1).unfold(2, dx, 1)
+        b = bl1.unfold(1, dy, 1).unfold(2, dx, 1).flip(1, 2)
+        d = (a[..., 0::2, :] - b[..., 0::2, :]).abs()
+        return d.sum((3, 4)).reshape(-1, 25).to(torch.int32)
+
+    return apply
+
+
+def _bitlen(v, maxbits: int = 22):
+    """int.bit_length for v >= 0 (exact, via compares; at most
+    maxbits)."""
+    pw = _powers_of_two(maxbits, v.dtype, v.device)
+    return (v[..., None] >= pw).sum(-1).to(v.dtype)
+
+
+def _rshift_msb(numer, denom):
+    """rightShiftMSB (InterPrediction.cpp:92): arithmetic shift by
+    floor(log2(denom)); denom >= 1."""
+    return numer >> (_bitlen(denom) - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def bdof_blend_core(w: int, h: int, bd: int):
+    """Batched BDOF blend (applyBiOptFlow / BiOptFlowCore): apply(ext0,
+    ext1 [N, h+2, w+2] int32, 14-bit blocks with integer-sample borders)
+    -> [N, h, w] clipped samples.  The per-4x4 flow windows (6x6, stride
+    4) are one strided view, so every 4x4 unit of the batch runs in the
+    same ops (h, w <= 16: the BDOF application region)."""
+    shift_num = IF_INTERNAL_PREC + 1 - bd
+    offset = (1 << (shift_num - 1)) + 2 * IF_INTERNAL_OFFS
+    limit = 15
+    pel_max = (1 << bd) - 1
+
+    def edge(a):
+        """Replicate the interior's outer rows and columns into the
+        1-sample border."""
+        a[:, 1:h + 1, 0] = a[:, 1:h + 1, 1]
+        a[:, 1:h + 1, w + 1] = a[:, 1:h + 1, w]
+        a[:, 0, :] = a[:, 1, :]
+        a[:, h + 1, :] = a[:, h, :]
+        return a
+
+    def grads(ext):
+        gx = torch.zeros_like(ext)
+        gy = torch.zeros_like(ext)
+        gx[:, 1:h + 1, 1:w + 1] = (ext[:, 1:h + 1, 2:w + 2] >> 6) \
+            - (ext[:, 1:h + 1, 0:w] >> 6)
+        gy[:, 1:h + 1, 1:w + 1] = (ext[:, 2:h + 2, 1:w + 1] >> 6) \
+            - (ext[:, 0:h, 1:w + 1] >> 6)
+        return edge(gx), edge(gy), edge(ext.clone())
+
+    def units(a):
+        # [N, h/4, w/4, 6, 6]: the 6x6 window of each 4x4 unit
+        return a.unfold(1, 6, 4).unfold(2, 6, 4)
+
+    def per_sample(v):
+        # [N, h/4, w/4] -> [N, h, w]: each unit's value on its 4x4
+        return v.repeat_interleave(4, 1).repeat_interleave(4, 2)
+
+    def apply(ext0, ext1):
+        gx0, gy0, e0 = grads(ext0)
+        gx1, gy1, e1 = grads(ext1)
+        tgx = units((gx0 + gx1) >> 1)
+        tgy = units((gy0 + gy1) >> 1)
+        tdi = units((e1 >> 4) - (e0 >> 4))
+        sgx = torch.sign(tgx)
+        sgy = torch.sign(tgy)
+        sum_abs_gx = tgx.abs().sum((3, 4)).to(torch.int32)
+        sum_abs_gy = tgy.abs().sum((3, 4)).to(torch.int32)
+        sum_dix = (sgx * tdi).sum((3, 4)).to(torch.int32)
+        sum_diy = (sgy * tdi).sum((3, 4)).to(torch.int32)
+        sum_sgygx = (sgy * tgx).sum((3, 4)).to(torch.int32)
+        tmpx = torch.where(
+            sum_abs_gx == 0, 0,
+            _rshift_msb(sum_dix * 4, torch.clamp(sum_abs_gx, min=1)))
+        tmpx = torch.clamp(tmpx, -limit, limit)
+        mains = sum_sgygx >> 12
+        secs = sum_sgygx & 4095
+        tmp_data = ((tmpx * mains) * (1 << 12) + tmpx * secs) >> 1
+        tmpy = torch.where(
+            sum_abs_gy == 0, 0,
+            _rshift_msb(sum_diy * 4 - tmp_data,
+                        torch.clamp(sum_abs_gy, min=1)))
+        tmpy = torch.clamp(tmpy, -limit, limit)
+        inner = (slice(None), slice(1, h + 1), slice(1, w + 1))
+        bterm = per_sample(tmpx) * (gx0[inner] - gx1[inner]) \
+            + per_sample(tmpy) * (gy0[inner] - gy1[inner])
+        return torch.clamp((e0[inner] + e1[inner] + bterm + offset)
+                           >> shift_num, 0, pel_max)
+
+    return apply
+
+
 def mc_coeff_rows(fracs, comp: int, alt_hpel=None, luma_table=None):
     """Per-block FIR coefficient rows (numpy [N, taps] int32).  fracs: [N]
     fraction indices (1/16 luma, 1/32 chroma); 0 maps to the identity
@@ -164,9 +275,12 @@ def mc_coeff_rows(fracs, comp: int, alt_hpel=None, luma_table=None):
 
 
 def _cu_mc_eligible(cs, cu) -> bool:
-    """Translational whole-CU MC: everything with subblock motion,
-    pixel-adaptive refinement or special gather windows is out (the same
-    split walk9.c's ix_cu_eligible makes)."""
+    """Translational whole-CU MC in the regular batches: everything with
+    subblock motion, pixel-adaptive refinement or special gather windows
+    is out (the same split walk9.c's ix_cu_eligible makes).  A CU that
+    DMVR or BDOF refines is not eligible here: it takes the refinement
+    stage (ops/dmvr_device.py) instead; GPM, affine, SbTMVP and CIIP CUs
+    take their own batches."""
     from vvdec_tpu_torch.frame.dmvr_np import bdof_condition, dmvr_condition
     from vvdec_tpu_torch.frame.structure import MODE_INTER
     if cu.pred_mode != MODE_INTER or cu.inter_dir not in (1, 2, 3):

@@ -28,6 +28,19 @@ bytes and the pins against the JAX package.
   tests/test_oracle.py::TestNativeMotionParity::test_full_toolset_ab
   (seed 0) and PROF: affine, SbTMVP / TMVP, MMVD, GPM, CIIP, BCW, AMVR.
   DMVR, BDOF and SMVD cannot fire with both lists on one past picture.
+- RA: 832x480, CTU 64, a hierarchical-B random-access GOP of 5 pictures
+  (I0, P4, B2, B1, B3 in coding order; tests/test_dmvr_bdof.py's
+  _bpyramid_stream) with the union of the SPS flags of its
+  test_dmvr_bdof_combined and test_dmvr_bdof_affine_sbtmvp: DMVR, BDOF,
+  TMVP, MMVD, AMVR, BCW, 6-parameter affine with PROF, SbTMVP; seed 3,
+  QP 32.  The shape of VTM's random-access configuration, which turns
+  DMVR and BDOF on; every picture decodes on the device.
+- inter-LMCS: tests/test_frame_device.py's inter LMCS stream at 832x480,
+  CTU 64 (_lmcs_stream(35, 3, 0, ...)): an IDR and two B pictures with
+  LMCS and chroma residual scaling.  The device pipeline rejects inter
+  LMCS, so the B pictures take the host reconstruction and the device
+  filter chain (LMCS_INTER_CENSUS); they read the IDR back from the
+  device and enter the device DPB.
 """
 
 from __future__ import annotations
@@ -68,6 +81,30 @@ INTER_LDB_STREAM_KW = dict(
                 geo_prob=0.2, mmvd_prob=0.2, ciip_prob=0.15, smvd_prob=0.2,
                 bcw_prob=0.3, amvr_prob=0.3))
 INTER_LDB_MD5 = "52f3504d2a4d4fbba74abb1d207e7c45"
+
+RA_STREAM_KW = dict(
+    w=832, h=480, seed=3,
+    sps_kw=dict(dmvr_enabled=True, bdof_enabled=True,
+                temporal_mvp_enabled=True, mmvd_enabled=True,
+                amvr_enabled=True, bcw_enabled=True, affine_enabled=True,
+                affine_6param=True, prof_enabled=True, sbtmvp_enabled=True),
+    dec_kw=dict(split_prob=0.4, inter_prob=0.8, skip_prob=0.25, mv_range=40,
+                bi_prob=0.7, mmvd_prob=0.2, amvr_prob=0.3, bcw_prob=0.3,
+                affine_prob=0.3, affine_merge_prob=0.3))
+RA_FRAMES = 5
+RA_MD5 = "d9e3a0d8985cbe5eb23a2e96a91b7ee2"
+
+LMCS_INTER_STREAM_KW = dict(seed=35, n_frames=3,
+                            dec_kw=dict(split_prob=0.5, density=0.3,
+                                        inter_prob=0.8),
+                            chroma_scale=True, ctu=64, wh=(832, 480),
+                            slice_type=0)
+LMCS_INTER_MD5 = "a41c28eea9099960a03bcf1f8c2b4761"
+# StreamDecoder.fallback_census after a decode: the IDR on the device,
+# both B pictures reconstructed on the host (Python TUs: LMCS keeps the
+# C paths off) and filtered on the device
+LMCS_INTER_CENSUS = {"device_recon:lmcs_inter": 2, "inter_c:lmcs": 2,
+                     "intra_c:lmcs": 2, "tu_python": 1938, "tu_native": 0}
 
 
 def headline_stream() -> bytes:
@@ -131,10 +168,11 @@ def sao_alf_stream(w: int, h: int, n: int, seed: int) -> bytes:
 
 
 def lmcs_stream(seed: int, n_frames: int, dec_kw: dict, chroma_scale: bool,
-                ctu: int, wh: tuple) -> bytes:
-    """tests/test_lmcs.py's _lmcs_stream for all-intra pictures
-    (slice_type 2, no extra SPS flags): every frame an IDR with LMCS
-    on."""
+                ctu: int, wh: tuple, slice_type: int = 2) -> bytes:
+    """tests/test_lmcs.py's _lmcs_stream with no extra SPS flags, LMCS on
+    in every picture: with slice_type 2 every frame is an IDR; otherwise
+    an IDR, then pictures of that slice type that reference the previous
+    one or two (both lists for B)."""
     from vvdec_tpu_torch.testenc import encoder as E
     from vvdec_tpu_torch.testenc.encoder import RandomDecisions, make_lmcs_aps
     sps = E.make_sps(wh[0], wh[1], ctu=ctu, lmcs_enabled=True)
@@ -146,8 +184,15 @@ def lmcs_stream(seed: int, n_frames: int, dec_kw: dict, chroma_scale: bool,
                  chroma_residual_scale=chroma_scale)
     for f in range(n_frames):
         dec = RandomDecisions(seed=seed * 100 + f, **dec_kw)
-        nal, _ = E.encode_frame(sps, pps, dec, qp=32, poc=f, idr=True,
-                                ph_kw=ph_kw)
+        if f == 0 or slice_type == 2:
+            nal, _ = E.encode_frame(sps, pps, dec, qp=32, poc=f, idr=True,
+                                    ph_kw=ph_kw)
+        else:
+            d = tuple(range(1, min(f, 2) + 1))
+            nal, _ = E.encode_frame(
+                sps, pps, dec, qp=32, poc=f, idr=False,
+                slice_type=slice_type, ph_kw=ph_kw,
+                ref_deltas=(d, d if slice_type == 0 else ()))
         st += nal
     return st
 
@@ -196,6 +241,40 @@ def inter_ldb_stream(w: int, h: int, n: int, seed: int, sps_kw: dict,
     return st
 
 
+def ra_stream(w: int, h: int, seed: int, sps_kw: dict, dec_kw: dict
+              ) -> bytes:
+    """A hierarchical-B random-access GOP (tests/test_dmvr_bdof.py's
+    _bpyramid_stream): I0, P4 (ref 0), then B2 (0, 4), B1 (0, 2) and
+    B3 (2, 4), coded in that order; each B picture has one past and one
+    future reference at equal distances, so DMVR and BDOF fire.  CTU 64,
+    QP 32, two pictures of reorder delay."""
+    from vvdec_tpu_torch.hls.params import B_SLICE, P_SLICE
+    from vvdec_tpu_torch.testenc import encoder as E
+    from vvdec_tpu_torch.testenc.encoder import RandomDecisions
+    sps = E.make_sps(w, h, ctu=64, num_reorder_pics=[2], **sps_kw)
+    pps = E.make_pps(sps)
+    st = _headers(sps, pps)
+    # extra RPL entries beyond the active count keep DPB pictures alive
+    coding = [
+        (0, True, None, ((), ()), None),
+        (4, False, P_SLICE, ((4,), ()), None),
+        (2, False, B_SLICE, ((2,), (-2,)), [1, 1]),
+        (1, False, B_SLICE, ((1, -3), (-1,)), [1, 1]),
+        (3, False, B_SLICE, ((1, 3), (-1,)), [1, 1]),
+    ]
+    for i, (poc, idr, slice_type, deltas, active) in enumerate(coding):
+        dec = RandomDecisions(seed=seed * 100 + i, **dec_kw)
+        if idr:
+            nal, _ = E.encode_frame(sps, pps, dec, qp=32, poc=poc, idr=True)
+        else:
+            sh_kw = dict(num_ref_idx_active=active) if active else None
+            nal, _ = E.encode_frame(sps, pps, dec, qp=32, poc=poc, idr=False,
+                                    slice_type=slice_type,
+                                    ref_deltas=deltas, sh_kw=sh_kw)
+        st += nal
+    return st
+
+
 # name -> (builder, frames, pinned MD5), in chip_smoke.py's order
 STREAMS = {
     "headline": (headline_stream, HEADLINE_STREAM_KW["n_frames"],
@@ -210,4 +289,7 @@ STREAMS = {
                  INTER_LD_STREAM_KW["n"], INTER_LD_MD5),
     "inter-LDB tools": (lambda: inter_ldb_stream(**INTER_LDB_STREAM_KW),
                         INTER_LDB_STREAM_KW["n"], INTER_LDB_MD5),
+    "RA": (lambda: ra_stream(**RA_STREAM_KW), RA_FRAMES, RA_MD5),
+    "inter-LMCS": (lambda: lmcs_stream(**LMCS_INTER_STREAM_KW),
+                   LMCS_INTER_STREAM_KW["n_frames"], LMCS_INTER_MD5),
 }
