@@ -50,16 +50,35 @@ result line:
    ("recon", "filter(submit)") beside the device ones;
 9. the device's busy share over a one-frame decode (headline), and over
    the second picture, a P picture, of the inter-LD stream, from
-   torch.profiler.
+   torch.profiler;
+10. the public surface: (a) api.Decoder on CUDA fed access unit by
+   access unit, the headline stream with threads 0, 2, 0, 2 and the
+   inter-LD stream with threads 3, each with its pinned MD5, an empty
+   census and one ITX launch per frame, printing frames/s and the
+   first-frame delay (from a new decoder's first decode() to the first
+   Frame it hands out); (b) err_handling="conceal" over the concealment
+   cases of streams.CONCEAL_CASES (a lost P picture, a broken slice,
+   four cuts of the inter-LD stream), each on its pins, with one ITX
+   launch per picture not grey-filled, then the headline's first frame
+   on its pin to show the CUDA context survived; (c) the vvdecapp CLI,
+   `python -m vvdec_tpu_torch.app -b headline.266 -o ... -t 1 -md5 ...`,
+   in a subprocess, at rc 0; (d) decode_annexb_parallel with a pool of 2
+   spawned workers over the headline stream against serial decodes in
+   alternating order, each on HEADLINE_MD5, with the workers' ITX
+   launches, their CUDA caching allocators' peaks and the card's used
+   memory before and while the pool is up.  The ITX kernel is held to
+   its plain version on every frame (a) and (b) record.
 
 Every timed decode also checks the decoder's fallback census: empty on
-every stream but inter-LMCS.
+every stream but inter-LMCS and the concealment cases' grey pictures.
 
 Each phase prints its wall time.  The last three lines of standard
 output are the kernels' JSON summary, the card's name and power limit,
 and {"ok": true, "device": ...}.  In the summary, launches counts the
-ITX launches of the timed decodes of all eight streams and max_abs_err
-covers every comparison of the kernel with its plain version; ms,
+ITX launches of the timed decodes of all eight streams and of phase 10's
+in-process decodes (not those of the CLI's or the pool's processes),
+and max_abs_err covers every comparison of the kernel with its plain
+version; ms,
 plain_ms and bound_ms are per decoded frame of the headline stream: ms
 is the kernel's device time and plain_ms the plain version's,
 both read from torch.profiler; call_ms is the wrapper calls' stream time
@@ -313,6 +332,35 @@ def yuv_md5(frames) -> str:
                                 for f in frames for p in f)).hexdigest()
 
 
+# the streams the phases built, by name of vvdec_tpu_torch.streams.STREAMS,
+# for the later phases that decode them again
+BUILT: dict = {}
+
+
+def built(name: str) -> bytes:
+    """The stream `name` of streams.STREAMS, built once per run."""
+    from vvdec_tpu_torch.streams import STREAMS
+    if name not in BUILT:
+        BUILT[name] = STREAMS[name][0]()
+    return BUILT[name]
+
+
+def itx_recorder(recorded: list):
+    """A stand-in for frame_device.itx_frame_cuda that appends each
+    call's inputs to `recorded` as the decode gives them (the residual
+    planes as they were before the call), then runs the wrapper."""
+    from vvdec_tpu_torch.ops.cuda.itx import itx_frame_cuda
+
+    def recorder(coef, resi, table, pool, *, n_tasks, bit_depth):
+        recorded.append(dict(
+            coef=[None if c is None else c.clone() for c in coef],
+            resi=[r.clone() for r in resi], table=table.clone(),
+            n_tasks=n_tasks, bit_depth=bit_depth))
+        return itx_frame_cuda(coef, resi, table, pool, n_tasks=n_tasks,
+                              bit_depth=bit_depth)
+    return recorder
+
+
 def recording_decode(stream: bytes, label: str, census=None,
                      refined=None) -> list:
     """One decode on CUDA that records every itx_frame_cuda call's
@@ -328,14 +376,7 @@ def recording_decode(stream: bytes, label: str, census=None,
     from vvdec_tpu_torch.decoder import decode_annexb
     from vvdec_tpu_torch.ops.cuda.itx import itx_frame_cuda
     recorded = []
-
-    def recorder(coef, resi, table, pool, *, n_tasks, bit_depth):
-        recorded.append(dict(
-            coef=[None if c is None else c.clone() for c in coef],
-            resi=[r.clone() for r in resi], table=table.clone(),
-            n_tasks=n_tasks, bit_depth=bit_depth))
-        return itx_frame_cuda(coef, resi, table, pool, n_tasks=n_tasks,
-                              bit_depth=bit_depth)
+    recorder = itx_recorder(recorded)
 
     def counting(name, factory):
         def make(*args, **kw):
@@ -526,7 +567,7 @@ def phase_main_path(errs: list) -> dict:
                                          headline_stream)
 
     t0 = time.perf_counter()
-    stream = headline_stream()
+    stream = BUILT["headline"] = headline_stream()
     n_frames = HEADLINE_STREAM_KW["n_frames"]
     print(f"[main] headline stream {HEADLINE_STREAM_KW['width']}x"
           f"{HEADLINE_STREAM_KW['height']} x {n_frames} frames, "
@@ -813,7 +854,7 @@ def phase_inter(errs: list) -> dict:
     for name in ("inter-LD", "inter-LDB tools"):
         builder, n_frames, md5_pin = STREAMS[name]
         t0 = time.perf_counter()
-        stream = builder()
+        stream = BUILT[name] = builder()
         print(f"[{name}] stream 832x480 x {n_frames} frames, {len(stream)} "
               f"bytes, made in {time.perf_counter() - t0:.1f} s")
         recorded = recording_decode(stream, name)
@@ -890,6 +931,245 @@ def phase_inter_busy() -> dict:
                 busy_share=busy / (b - a), device_ops=n_ops)
 
 
+def access_units(stream: bytes) -> list:
+    """The stream cut into access units: each VCL NAL with the non-VCL
+    NALs before it (the streams here have one slice per picture);
+    trailing non-VCL NALs join the last unit."""
+    from vvdec_tpu_torch.bitstream.nal import is_vcl, split_annexb
+    nals = split_annexb(stream)
+    # each NAL with its start code (3 bytes, or 4 with a zero before)
+    starts = [0] + [off - 4 if stream[off - 4] == 0 else off - 3
+                    for off, _ in nals[1:]]
+    units, cur = [], b""
+    for (off, _), a, b in zip(nals, starts, starts[1:] + [len(stream)]):
+        cur += stream[a:b]
+        if is_vcl(stream[off + 1] >> 3):
+            units.append(cur)
+            cur = b""
+    if cur:
+        units[-1] += cur
+    fail_unless(b"".join(units) == stream, "access units do not rejoin "
+                "into the stream")
+    return units
+
+
+def api_decode(stream: bytes, n_frames: int, md5_pin: str, label: str,
+               recorded: list, threads: int = 0, conceal=None) -> dict:
+    """api.Decoder(DecoderParams(threads=...)) on CUDA fed access unit by
+    access unit, then flushed, recording the ITX kernel's inputs, with
+    the kernels' launch counts set to 0 just before and read just after.
+    Fails unless the YUV has its pinned MD5, the census is empty and the
+    ITX kernel ran once per frame.  With `conceal` (a CONCEAL_CASES
+    entry) the decoder conceals, and the output pictures, their error
+    flags, error_pictures and the grey pictures must be the pinned ones,
+    with one ITX launch per picture that is not grey."""
+    import numpy as np
+    import torch
+
+    import vvdec_tpu_torch.ops.frame_device as frame_device
+    from vvdec_tpu_torch.api import Decoder, DecoderParams
+    from vvdec_tpu_torch.ops.cuda.itx import itx_batch_cuda, itx_frame_cuda
+    aus = access_units(stream)
+    itx_frame_cuda.launches = 0
+    itx_batch_cuda.launches = 0
+    frame_device.itx_frame_cuda = itx_recorder(recorded)
+    try:
+        t0 = time.perf_counter()
+        dec = Decoder(DecoderParams(
+            threads=threads, err_handling="conceal" if conceal else
+            "strict"))
+        frames, first = [], None
+        for au in aus:
+            frames += dec.decode(au)
+            if frames and first is None:
+                first = time.perf_counter() - t0
+        frames += dec.flush()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if first is None:   # every frame came out of the flush
+            first = dt
+    finally:
+        frame_device.itx_frame_cuda = itx_frame_cuda
+    launches = itx_frame_cuda.launches
+    md5 = yuv_md5([f.planes for f in frames])
+    census = dec.get_fallback_census()
+    errors = tuple(f.poc for f in frames if f.picture.error)
+    grey = sum(all(bool((p == 512).all()) for p in f.planes) for f in frames)
+    n_err = dec._core.error_pictures
+    shapes_ok = all(np.asarray(f.planes[0]).shape == (480, 832)
+                    for f in frames)
+    for f in frames:
+        dec.frame_unref(f)
+    print(f"[{label}] api.Decoder threads={threads} on cuda, {len(aus)} "
+          f"access units: {len(frames)} frames in {dt:.3f} s = "
+          f"{len(frames) / dt:.2f} frames/s; first frame after "
+          f"{first:.3f} s; itx launches {launches} (itx_batch_cuda "
+          f"{itx_batch_cuda.launches}); md5 {md5}; census {census}"
+          + (f"; error POCs {errors}, error_pictures {n_err}, grey {grey}"
+             if conceal else ""))
+    fail_unless(len(frames) == n_frames, f"{label}: {len(frames)} frames, "
+                f"expected {n_frames}")
+    fail_unless(shapes_ok, f"{label}: unexpected plane shapes")
+    fail_unless(md5 == md5_pin, f"{label}: md5 {md5} != pinned {md5_pin}")
+    fail_unless(census == {}, f"{label}: fallback census {census}")
+    if conceal:
+        want = conceal[3:6]
+        fail_unless((errors, n_err, grey) == want, f"{label}: error POCs, "
+                    f"error_pictures, grey {(errors, n_err, grey)} != "
+                    f"pinned {want}")
+    fail_unless(launches == n_frames - grey, f"{label}: {launches} ITX "
+                f"launches for {n_frames - grey} pictures decoded on the "
+                f"device")
+    return dict(fps=len(frames) / dt, decode_s=dt, first_frame_s=first,
+                launches=launches, md5=md5)
+
+
+def phase_api(errs: list) -> dict:
+    """(a) api.Decoder: the headline with threads 0, 2, 0, 2, then the
+    inter-LD stream with threads 3."""
+    from vvdec_tpu_torch.streams import STREAMS
+    runs = []
+    for name, threads in (("headline", 0), ("headline", 2), ("headline", 0),
+                          ("headline", 2), ("inter-LD", 3)):
+        _, n_frames, md5_pin = STREAMS[name]
+        recorded: list = []
+        res = api_decode(built(name), n_frames, md5_pin, f"api {name}",
+                         recorded, threads=threads)
+        check_frames(recorded, errs, f"api {name}")
+        runs.append(dict(res, stream=name, threads=threads))
+    for threads in (0, 2):
+        sel = [r for r in runs if r["stream"] == "headline"
+               and r["threads"] == threads]
+        print(f"[api] headline threads={threads}: frames/s "
+              f"{[round(r['fps'], 3) for r in sel]}, first-frame delay "
+              f"{[round(r['first_frame_s'], 3) for r in sel]} s")
+    return dict(runs=runs, launches=sum(r["launches"] for r in runs))
+
+
+def phase_conceal(errs: list) -> dict:
+    """(b) err_handling="conceal" over every concealment case, then the
+    headline's first frame on a fresh decoder."""
+    from vvdec_tpu_torch.streams import (CONCEAL_CASES, HEADLINE_FIRST_MD5,
+                                         HEADLINE_STREAM_KW, conceal_variant)
+    from vvdec_tpu_torch.testenc.encoder import generate_stream
+    base = built("inter-LD")
+    runs = {}
+    for name, case in CONCEAL_CASES.items():
+        fault, poc, n_out = case[:3]
+        recorded: list = []
+        runs[name] = api_decode(conceal_variant(base, fault, poc), n_out,
+                                case[6], name, recorded, conceal=case)
+        check_frames(recorded, errs, name)
+    one, _ = generate_stream(**dict(HEADLINE_STREAM_KW, n_frames=1))
+    recorded = []
+    after = api_decode(one, 1, HEADLINE_FIRST_MD5, "after concealment",
+                       recorded)
+    check_frames(recorded, errs, "after concealment")
+    return dict(cases=runs, after=after, launches=after["launches"] + sum(
+        r["launches"] for r in runs.values()))
+
+
+def phase_cli() -> dict:
+    """(c) the vvdecapp CLI in a subprocess on the headline stream."""
+    import tempfile
+
+    from vvdec_tpu_torch.streams import HEADLINE_MD5
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "headline.266")
+        out = os.path.join(tmp, "headline.yuv")
+        with open(src, "wb") as f:
+            f.write(built("headline"))
+        cmd = [sys.executable, "-m", "vvdec_tpu_torch.app", "-b", src,
+               "-o", out, "-t", "1", "-md5", HEADLINE_MD5]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                           timeout=600)
+        dt = time.perf_counter() - t0
+        for line in (r.stdout + r.stderr).strip().splitlines()[-3:]:
+            print(f"[cli]   {line}")
+        print(f"[cli] python -m vvdec_tpu_torch.app -b headline.266 -o ... "
+              f"-t 1 -md5 {HEADLINE_MD5}: rc {r.returncode} in {dt:.1f} s "
+              f"(process start included)")
+        fail_unless(r.returncode == 0, f"the CLI exited with rc "
+                    f"{r.returncode}: {r.stderr[-2000:]}")
+        with open(out, "rb") as f:
+            md5 = hashlib.md5(f.read()).hexdigest()
+        fail_unless(md5 == HEADLINE_MD5, f"the CLI's YUV md5 {md5}")
+    return dict(rc=r.returncode, wall_s=dt)
+
+
+def phase_pool() -> dict:
+    """(d) decode_annexb_parallel over 2 spawned workers against serial
+    decodes of the headline stream, alternating: pool, serial, pool,
+    serial; the card's used memory before and while the pool is up."""
+    import torch
+
+    from vvdec_tpu_torch.decoder import decode_annexb
+    from vvdec_tpu_torch.parallel import (decode_annexb_parallel,
+                                          make_worker_pool)
+    from vvdec_tpu_torch.streams import HEADLINE_MD5, STREAMS
+    stream = built("headline")
+    n_frames = STREAMS["headline"][1]
+    workers = 2
+
+    def used_mib():
+        free, total = torch.cuda.mem_get_info()
+        return (total - free) / 2**20
+
+    torch.cuda.synchronize()
+    before = used_mib()
+    t0 = time.perf_counter()
+    ex = make_worker_pool(workers, "cuda")
+    try:
+        start_s = time.perf_counter() - t0
+        warm = used_mib()
+        print(f"[pool] {workers} spawned workers up in {start_s:.1f} s; card "
+              f"memory used {before:.0f} MiB before, {warm:.0f} MiB with the "
+              f"pool up: {(warm - before) / workers:.0f} MiB per worker")
+        runs, peak = [], warm
+        for kind in ("pool", "serial", "pool", "serial"):
+            t1 = time.perf_counter()
+            if kind == "pool":
+                frames = decode_annexb_parallel(stream, workers=workers,
+                                                device="cuda", executor=ex)
+                peak = max(peak, used_mib())
+            else:
+                frames = decode_annexb(stream)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            md5 = yuv_md5(frames)
+            run = dict(kind=kind, fps=len(frames) / dt, decode_s=dt, md5=md5)
+            if kind == "pool":
+                reps = decode_annexb_parallel.worker_reports
+                run["workers"] = reps
+                fail_unless(sum(r["itx_launches"] for r in reps) == n_frames
+                            == sum(r["frames"] for r in reps),
+                            f"pool: worker reports {reps}")
+                fail_unless(len({r["pid"] for r in reps}) == workers,
+                            f"pool: the chunks ran in {reps}")
+            print(f"[pool] {kind}: {len(frames)} frames in {dt:.3f} s = "
+                  f"{len(frames) / dt:.2f} frames/s; md5 {md5}"
+                  + ("".join(f"; worker {r['pid']}: {r['frames']} frames, "
+                             f"{r['itx_launches']} itx launches, max memory "
+                             f"reserved {r['max_memory_reserved'] / 2**20:.0f}"
+                             f" MiB" for r in run.get("workers", ()))))
+            fail_unless(len(frames) == n_frames and md5 == HEADLINE_MD5,
+                        f"pool: {kind} decode gave {len(frames)} frames, md5 "
+                        f"{md5}")
+            runs.append(run)
+    finally:
+        ex.shutdown()
+    pool = [r["fps"] for r in runs if r["kind"] == "pool"]
+    serial = [r["fps"] for r in runs if r["kind"] == "serial"]
+    print(f"[pool] frames/s pool {[round(x, 3) for x in pool]} vs serial "
+          f"{[round(x, 3) for x in serial]}: "
+          f"{sum(pool) / sum(serial):.2f}x; card memory with the pool up "
+          f"{warm:.0f} MiB, at most {peak:.0f} MiB read during its decodes")
+    return dict(runs=runs, start_s=start_s, used_mib_before=before,
+                used_mib_pool_up=warm, used_mib_peak=peak,
+                per_worker_mib=(warm - before) / workers)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the details as JSON here")
@@ -929,12 +1209,18 @@ def main(argv=None) -> int:
         host = timed("host recon", phase_host_recon, errs)
         main_path["profile"] = timed("profile", phase_device_busy)
         inter["profile P picture"] = timed("profile P", phase_inter_busy)
+        surface = dict(api=timed("public surface: api", phase_api, errs),
+                       conceal=timed("public surface: conceal",
+                                     phase_conceal, errs),
+                       cli=timed("public surface: cli", phase_cli),
+                       pool=timed("public surface: pool", phase_pool))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     launches = main_path["launches"] + sum(
         r["launches"] for r in (*tool_set.values(), inter["inter-LD"],
-                                inter["inter-LDB tools"], ra, host))
+                                inter["inter-LDB tools"], ra, host,
+                                surface["api"], surface["conceal"]))
     kernels = [dict(
         name="itx_frame", route="cuda", source="vvdec_tpu_torch/csrc/itx.cu",
         replaces="vvdec_tpu/ops/pallas/itx.py:96",
@@ -947,7 +1233,8 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kernels=kernels, main_path=main_path,
                            tool_set=tool_set, inter=inter, ra=ra,
-                           host_recon=host), f, indent=1)
+                           host_recon=host, public_surface=surface), f,
+                      indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,10 @@ Main10 decoder, for one NVIDIA H100.
   (planar, DC, angular, MIP, CCLM; intra LMCS), the in-loop filters
   (deblocking, SAO, ALF, CC-ALF) and the 10-bit output pack, all in
   device memory.  Every stage is held bit for bit to the JAX reference.
+- **Public surface**: `api.Decoder` (the vvdec_decoder_open /
+  vvdec_decode analog, with concealment, recon-while-parse threads and
+  film grain), the `vvdecapp` CLI (`python -m vvdec_tpu_torch.app`) and
+  the GOP worker pool (`parallel.decode_annexb_parallel`).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`.
 """
@@ -24,4 +28,5 @@ import os as _os
 for _v in ("OPENBLAS_NUM_THREADS", "OMP_NUM_THREADS", "MKL_NUM_THREADS"):
     _os.environ.setdefault(_v, "1")
 
+from vvdec_tpu_torch.api import Decoder, DecoderParams, Frame  # noqa: E402,F401
 from vvdec_tpu_torch.decoder import StreamDecoder, decode_annexb  # noqa: E402,F401

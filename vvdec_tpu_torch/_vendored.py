@@ -22,7 +22,7 @@ VENDORED = (
     "frame/deblock_np.py", "frame/inter_np.py", "frame/rpr_np.py",
     "frame/lmcs_np.py", "frame/alf_np.py", "frame/dmvr_np.py",
     "frame/geo_np.py", "frame/affine_np.py", "frame/recon_native.py",
-    "frame/inter_native.py", "frame/sao_np.py",
+    "frame/inter_native.py", "frame/sao_np.py", "frame/film_grain.py",
     "native/__init__.py", "native/cabac.c", "native/walk.c",
     "native/walk2.c", "native/walk3.c", "native/walk4.c", "native/walk5.c",
     "native/walk6.c", "native/walk7.c", "native/walk8.c", "native/walk9.c",
@@ -30,6 +30,7 @@ VENDORED = (
     "dpb.py", "utils/__init__.py", "utils/trace.py",
     "ops/rom.py", "ops/tables.py", "ops/tables_tr.npz", "ops/tables_mip.npz",
     "ops/tables_if.npz", "ops/tables_rpr.npz", "ops/tables_alf.npz",
+    "ops/tables_vfgs.npz",
     "testenc/__init__.py", "testenc/bitwriter.py", "testenc/encoder.py",
     "testenc/hls_writer.py",
 )

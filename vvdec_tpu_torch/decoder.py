@@ -24,10 +24,15 @@ their references from the device DPB (`_refs_dev`: each decoded
 picture's filtered planes, kept on the device until the next IDR); a
 host-reconstructed picture reads them back once per POC (`_refs_host`)
 and enters the device DPB itself.  A missing reference raises
-ValueError, as the reference's strict mode does.  Not carried over: the
-concealment of lost references and broken pictures
-(err_policy="conceal"), the recon-while-parse thread pool, the public
-api.Decoder and the command-line entry point.
+ValueError, as the reference's strict mode does; with
+err_policy="conceal" a lost reference is substituted and a broken
+picture grey-filled, both entering the device DPB, as the reference
+conceals them (never a device fault: `is_device_fault`).  threads >= 2
+runs the parse on its own thread and the CABAC walks on a pool (the
+reference's recon-while-parse); the device stays on the caller's
+thread.  The public surface over this class is api.Decoder, the
+command-line app (app.py, and `main` here) and the GOP worker pool
+(parallel/gop.py).
 """
 
 from __future__ import annotations
@@ -71,7 +76,9 @@ class ParsedFrame:
     poc: int = 0
     is_idr: bool = False
     nal_type: int = 0
+    broken: bool = False     # parse error: conceal with grey fill
     sei: list = field(default_factory=list)
+    walk_future: object = None  # in-flight CABAC walk (parse-ahead pool)
 
 
 class FrameParser:
@@ -88,6 +95,12 @@ class FrameParser:
 
     def __init__(self) -> None:
         self.psman = ParameterSetManager()
+        # optional executor for deferred picture walks: the CABAC decode
+        # of whole (single-slice) pictures runs as parse-ahead tasks (the
+        # reference's per-slice parse tasks, DecLibParser.cpp:948-1012);
+        # the C walk releases the GIL, so tasks parallelize across
+        # pictures.  Set by StreamDecoder(threads >= 3).
+        self.walk_pool = None
         self.prev_tid0_poc = 0
         self.cur_ph = None
         self.active_sps = None
@@ -163,7 +176,7 @@ class FrameParser:
 
     def _flush_pending(self, frames: list) -> None:
         if self._pending is not None:
-            pf, covered, total = self._pending
+            pf, covered, total, _tasks = self._pending
             self._pending = None
             if len(covered) < total:
                 raise ValueError(
@@ -240,10 +253,10 @@ class FrameParser:
             pf = ParsedFrame(cs=cs, poc=sh.poc, is_idr=nal.is_idr,
                              nal_type=int(nal.nal_type))
             total = pps.pic_width_in_ctu * pps.pic_height_in_ctu
-            self._pending = (pf, set(), total)
+            self._pending = (pf, set(), total, [])
             slice_idx = 0
         else:
-            pf, _covered, total = self._pending
+            pf, covered0, total, _tasks = self._pending
             cs = pf.cs
             if sh.poc != pf.poc:
                 raise ValueError("slice POC changed mid-picture "
@@ -270,15 +283,137 @@ class FrameParser:
         from vvdec_tpu_torch.cabac.engine import make_cabac_decoder
         dec = make_cabac_decoder(full_rbsp, start_byte)
         dec.reset(sh.qp_y, sh.slice_type)
+        if self.walk_pool is not None and slice_idx == 0 \
+                and len(sh.ctu_addrs) >= total:
+            # single-slice picture: defer the whole CABAC walk to the
+            # parse-ahead pool; the picture is "parsed" when the future
+            # resolves (checked before reconstruction)
+            coder = CtuDecoder(cs, dec=dec, slice_idx=slice_idx)
+            pf.walk_future = self.walk_pool.submit(coder.decode_slice)
+            self._pending = None
+            return pf
+        if self.walk_pool is not None and self._parallel_slice_ok(cs, dec):
+            # multi-slice picture: ONE walk task per slice over a proxy
+            # cs with private record buffers and maps; slices of the
+            # same picture parse concurrently (DecLibParser.cpp:948) and
+            # merge at join (ParsedFrame.walk_future)
+            task = self._submit_slice_walk(cs, sh, dec, slice_idx)
+            pf, covered, total, tasks = self._pending
+            tasks.append(task)
+            covered.update(sh.ctu_addrs)
+            self._pending = (pf, covered, total, tasks)
+            if len(covered) >= total:
+                pf.walk_future = _MultiSliceWalk(cs, tasks)
+                self._pending = None
+                return pf
+            return None
         coder = CtuDecoder(cs, dec=dec, slice_idx=slice_idx)
         coder.decode_slice()
-        covered = self._pending[1]
+        pf, covered, total, tasks = self._pending
         covered.update(sh.ctu_addrs)
+        self._pending = (pf, covered, total, tasks)
         if len(covered) >= total:
             cs.sh = cs.shs[0]
             self._pending = None
             return pf
         return None
+
+    @staticmethod
+    def _parallel_slice_ok(cs, dec) -> bool:
+        """Per-slice walk tasks need the native walk (the merge operates
+        on its flat records); mirror native_walk_ok's gates."""
+        import os
+        if os.environ.get("VVDEC_TPU_TORCH_PY_WALK") == "1":
+            return False
+        if cs.sps.act_enabled:
+            return False
+        return hasattr(dec, "_d") and hasattr(dec._d, "walk_begin")
+
+    def _submit_slice_walk(self, cs, sh, dec, slice_idx):
+        """Submit one slice's CABAC walk on a private proxy cs (fresh
+        walk buffers + CU/QP/slice maps; coefficient planes and per-CTU
+        parameter lists stay shared — slices write disjoint regions)."""
+        import copy
+        proxy = copy.copy(cs)
+        proxy.__dict__.pop("_nw", None)
+        proxy.__dict__.pop("_mctx", None)
+        proxy.__dict__.pop("_mctx_side", None)
+        proxy.cu_map = np.full_like(cs.cu_map, -1)
+        proxy.cu_map_c = None if cs.cu_map_c is None \
+            else np.full_like(cs.cu_map_c, -1)
+        proxy.qp_map = np.zeros_like(cs.qp_map)
+        proxy.slice_map = np.full_like(cs.slice_map, -1)
+        proxy.sh = sh
+        proxy.cus = []
+        proxy.tus = []
+
+        def run():
+            coder = CtuDecoder(proxy, dec=dec, slice_idx=slice_idx)
+            coder.decode_slice()
+            return proxy
+
+        return self.walk_pool.submit(run), proxy
+
+
+class _MultiSliceWalk:
+    """Joins the per-slice CABAC walk tasks of one picture and merges
+    their private walk records/maps into the real CodingStructure (the
+    reference's per-slice parse tasks, DecLibParser.cpp:948-1012, with
+    context isolation per slice as DecSlice.cpp:133-167).  Each task
+    parsed its slice into a proxy cs with private record buffers and
+    CU/QP/slice maps; cross-slice neighbor lookups during the walk see
+    -1 (unavailable), which matches the slice availability rule."""
+
+    def __init__(self, cs, tasks) -> None:
+        self.cs = cs
+        self.tasks = tasks  # [(future, proxy)] in slice order
+        self._done = False
+
+    def result(self) -> None:
+        if self._done:
+            return
+        self._done = True
+        from vvdec_tpu_torch.cabac.native_walk import (
+            CU_F, LazyRecList, _materialize_cu, _materialize_tu)
+        cs = self.cs
+        proxies = []
+        for fut, proxy in self.tasks:
+            fut.result()  # re-raises slice parse errors
+            proxies.append(proxy)
+        first_tu_col = CU_F["first_tu"]
+        cu_parts, tu_parts = [], []
+        cu_base = tu_base = 0
+        for p in proxies:
+            nw = p._nw
+            ncu, ntu = int(nw["counts"][0]), int(nw["counts"][1])
+            cu_rec = nw["cu_rec"][:ncu].copy()
+            tu_rec = nw["tu_rec"][:ntu].copy()
+            cu_rec[:, first_tu_col] += tu_base
+            tu_rec[:, 0] += cu_base
+            cu_parts.append(cu_rec)
+            tu_parts.append(tu_rec)
+            m = p.cu_map >= 0
+            cs.cu_map[m] = p.cu_map[m] + cu_base
+            if cs.cu_map_c is not None:
+                mc = p.cu_map_c >= 0
+                cs.cu_map_c[mc] = p.cu_map_c[mc] + cu_base
+            ms = p.slice_map >= 0
+            cs.slice_map[ms] = p.slice_map[ms]
+            cs.qp_map[ms] = p.qp_map[ms]
+            cu_base += ncu
+            tu_base += ntu
+        nw = {
+            "cu_rec": np.concatenate(cu_parts),
+            "tu_rec": np.concatenate(tu_parts),
+            "counts": np.asarray([cu_base, tu_base], dtype=np.int32),
+        }
+        cs._nw = nw
+        cs.chroma_qp_adj = proxies[-1].chroma_qp_adj
+        cs.cus = LazyRecList(lambda i: _materialize_cu(cs, nw, i))
+        cs.tus = LazyRecList(lambda i: _materialize_tu(cs, nw, i))
+        cs.cus.extend([None] * cu_base)
+        cs.tus.extend([None] * tu_base)
+        cs.sh = cs.shs[0]
 
 
 class _DeferredFrame:
@@ -332,20 +467,59 @@ class StreamDecoder:
     device pipeline rejects are reconstructed on the host and counted in
     `fallback_census` (a Counter with the reference's keys:
     device_recon:<reason>, device_filter:<reason>, intra_c:, inter_c:,
-    tu_python, tu_native).  The reference's concealment of broken
-    streams and its recon-while-parse thread pool are not carried
-    over."""
+    tu_python, tu_native).  Concealment and the recon-while-parse
+    threads are the reference's (see __init__)."""
 
-    def __init__(self, device=None, strict_hash: bool = True):
+    def __init__(self, device=None, strict_hash: bool = True,
+                 err_policy: str = "strict", threads: int = 0,
+                 parse_delay: int | None = None):
         """device: where the reconstruction runs (default CUDA; raises when
-        CUDA is missing unless "cpu" is passed)."""
+        CUDA is missing unless "cpu" is passed).
+
+        err_policy: "strict" raises on broken streams; "conceal" follows
+        the reference's fault tolerance — lost references are synthesized
+        (closest picture or grey, DecLibParser::prepareUnavailablePicture,
+        PicListManager::findClosestPic) and broken pictures are grey-filled
+        and kept referenceable (DecLib::sanitizeBrokenPicture).  Only
+        faults of the stream are concealed: a kernel's build, load or
+        launch error, CUDA out of memory and any other CUDA error raise
+        under either policy (`is_device_fault`).
+
+        threads >= 2 enables the recon-while-parse overlap (the reference's
+        RECO_WHILE_PARSE, TypeDef.h:69 + parse-ahead, DecLib.cpp:128-133):
+        a dedicated parse thread runs the CABAC walk (which releases the
+        GIL inside the C loops) up to `parse_delay` pictures ahead while
+        the calling thread reconstructs; threads >= 3 adds threads - 2
+        walk threads.  Those threads never touch the device: the plan,
+        the uploads, the launches and the readbacks all run on the thread
+        that calls push or flush.  parse_delay defaults to
+        min(1.5 * threads, 48), the reference's default."""
         from vvdec_tpu_torch.device import resolve_device
         from vvdec_tpu_torch.dpb import PicListManager
         self.parser = FrameParser()
         self.plm = PicListManager()
         self.device = resolve_device(device)
         self.strict_hash = strict_hash
+        self.err_policy = err_policy
+        self._parse_exec = None
+        self._last_parsed: ParsedFrame | None = None
+        if parse_delay is None:
+            parse_delay = min(int(threads * 1.5), 48) if threads else 1
+        self._parse_delay = max(1, parse_delay)
+        if threads >= 2:
+            from concurrent.futures import ThreadPoolExecutor
+            self._parse_exec = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="vvdec-parse")
+            if threads >= 3:
+                # picture-walk tasks run threads-2 wide (the reference
+                # spawns one parse task per slice, DecLibParser.cpp:990)
+                self.parser.walk_pool = ThreadPoolExecutor(
+                    max_workers=threads - 2,
+                    thread_name_prefix="vvdec-walk")
         self.hash_errors = 0
+        # concealed pictures: one per substituted reference, one per
+        # grey-filled broken picture
+        self.error_pictures = 0
         # per-picture fallback census: every picture the device pipeline
         # rejects is counted here with its reason, as are the host
         # reconstruction's own fallbacks from its C paths
@@ -371,16 +545,75 @@ class StreamDecoder:
     def push(self, data: bytes) -> list:
         """Feed a chunk of Annex-B bytes (one AU or more); returns the
         pictures that became ready for output, in output order."""
+        if self._parse_exec is not None:
+            return self._push_threaded(data)
         out = []
         from vvdec_tpu_torch.utils.trace import profiler
         for nal in read_nal_units(data):
-            with profiler.stage("parse"):
-                done = self.parser.feed_nal(nal, last_frame=self._pending)
+            try:
+                with profiler.stage("parse"):
+                    done = self.parser.feed_nal(
+                        nal, last_frame=self._pending)
+            except Exception as e:
+                done = self._parse_failed(e)
             for f in done:
                 if self._pending is not None:
                     self._reconstruct(self._pending)
                 self._pending = f
             out.extend(self._bump())
+        return out
+
+    def _parse_failed(self, exc: Exception) -> list:
+        """Called while `exc`, raised by the parser, is being handled:
+        re-raises it unless the decoder conceals a fault of the stream.
+        A parse error mid-picture breaks the open picture, which is then
+        grey-filled, and the parser resynchronizes (reference: parse-task
+        exception transport, DecLibParser.cpp:969-980).  Returns the
+        broken picture, if any."""
+        if self.err_policy != "conceal" or is_device_fault(exc):
+            raise
+        if self.parser._pending is None:
+            return []
+        pf = self.parser._pending[0]
+        pf.broken = True
+        self.parser._pending = None
+        return [pf]
+
+    def _parse_one(self, nal) -> list:
+        """Runs on the parse thread; serial, owns all parser state."""
+        try:
+            done = self.parser.feed_nal(nal, last_frame=self._last_parsed)
+        except Exception as e:
+            done = self._parse_failed(e)
+        if done:
+            self._last_parsed = done[-1]
+        return done
+
+    def _push_threaded(self, data: bytes) -> list:
+        """Recon-while-parse: the parse thread runs ahead up to the
+        parse-delay while this thread reconstructs completed pictures.
+        The CABAC walk and the C recon kernels both release the GIL, so
+        the two stages genuinely overlap."""
+        from collections import deque
+        out = []
+        futs: deque = deque()
+        # NAL count bound approximating the picture-count parse delay
+        bound = 4 + 2 * self._parse_delay
+
+        def drain_one():
+            done = futs.popleft().result()
+            for f in done:
+                if self._pending is not None:
+                    self._reconstruct(self._pending)
+                self._pending = f
+            out.extend(self._bump())
+
+        for nal in read_nal_units(data):
+            futs.append(self._parse_exec.submit(self._parse_one, nal))
+            while len(futs) > bound:
+                drain_one()
+        while futs:
+            drain_one()
         return out
 
     def flush(self) -> list:
@@ -396,7 +629,9 @@ class StreamDecoder:
             self._pending = None
         out = self.plm.drain(self._num_reorder)
         self.plm.reset()
+        pool = self.parser.walk_pool
         self.parser = FrameParser()
+        self.parser.walk_pool = pool
         return out
 
     def _bump(self) -> list:
@@ -406,6 +641,23 @@ class StreamDecoder:
             if p is None:
                 return out
             out.append(p)
+
+    def _grey_planes(self, cs) -> list:
+        """Mid-grey planes for concealment (Picture::fillGrey)."""
+        grey = 1 << (cs.sps.bit_depth - 1)
+        return [np.full((h, w), grey, dtype=np.int32)
+                for (w, h) in cs.comp_size]
+
+    def _store_grey(self, poc: int, cs) -> list:
+        """A grey picture enters the DPB under `poc`: torch.full planes on
+        the device, its numpy planes for the host path.  Returns those."""
+        planes = self._grey_planes(cs)
+        grey = 1 << (cs.sps.bit_depth - 1)
+        self._refs_dev[poc] = tuple(
+            torch.full(p.shape, grey, dtype=torch.int32, device=self.device)
+            for p in planes)
+        self._refs_host[poc] = planes
+        return planes
 
     def _ref_planes_of(self, poc: int) -> list:
         """A DPB picture's int32 host planes: a device picture resolves
@@ -463,13 +715,15 @@ class StreamDecoder:
 
     def _build_ref_set(self, f, cs, sh_ref):
         """Resolve one slice's RPLs: (ref_pocs, ref_planes, ref_cols,
-        ref_scaled, check_ldc) (Slice::constructRefPicLists +
-        scaleRefPicList).  ref_planes holds the device DPB's planes."""
+        ref_scaled, check_ldc), plus a missing-reference error flag
+        (Slice::constructRefPicLists + scaleRefPicList).  ref_planes holds
+        the device DPB's planes."""
         from vvdec_tpu_torch.frame import rpr_np
         ref_pocs = [[], []]
         ref_planes = [[], []]
         ref_cols = [[], []]
         ref_scaled = [[], []]
+        pic_error = False
         for lst in range(2):
             rpl = sh_ref.rpl[lst]
             if rpl is None:
@@ -493,7 +747,11 @@ class StreamDecoder:
                     ref_poc = f.poc + e.value
                 ref_pocs[lst].append(ref_poc)
                 if ref_poc not in self._refs_dev:
-                    raise ValueError(f"missing reference POC {ref_poc}")
+                    if self.err_policy != "conceal":
+                        raise ValueError(
+                            f"missing reference POC {ref_poc}")
+                    self._substitute_ref(ref_poc, cs)
+                    pic_error = True
                 ref_planes[lst].append(self._refs_dev[ref_poc])
                 ref_cols[lst].append(self._ref_cols[ref_poc])
                 # RPR: record per-ref scaling when the reference uses a
@@ -510,13 +768,30 @@ class StreamDecoder:
             p <= f.poc
             for lst in range(2)
             for p in ref_pocs[lst][: sh_ref.num_ref_idx_active[lst]])
-        return ref_pocs, ref_planes, ref_cols, ref_scaled, check_ldc
+        return (ref_pocs, ref_planes, ref_cols, ref_scaled,
+                check_ldc), pic_error
 
-    def _resolve_ref_sets(self, f, cs) -> None:
+    def _substitute_ref(self, poc: int, cs) -> None:
+        """Lost reference: the closest decoded picture, or a grey frame
+        (DecLibParser::prepareUnavailablePicture + findClosestPic), stored
+        under `poc` in the device DPB, its host planes and its motion."""
+        self.error_pictures += 1
+        if self._refs_dev:
+            best = min(self._refs_dev, key=lambda p: (abs(p - poc), p))
+            self._refs_dev[poc] = self._refs_dev[best]
+            self._refs_host[poc] = self._refs_host[best]
+            self._ref_cols[poc] = self._ref_cols[best]
+            return
+        from vvdec_tpu_torch.frame.inter_np import ColMotion
+        self._store_grey(poc, cs)
+        self._ref_cols[poc] = ColMotion(cs, poc)
+
+    def _resolve_ref_sets(self, f, cs) -> bool:
         """Per-slice reference sets (the reference constructs RPLs per
         slice, Slice::constructRefPicLists); the shared cs.ref_* come from
         the first inter slice, and when slices disagree cs.per_slice_rpl
-        is set (plan_frame_device rejects such pictures)."""
+        is set (plan_frame_device rejects such pictures).  Returns whether
+        a reference was missing and substituted."""
         sh_ref = next((s for s in cs.shs if not s.is_intra), cs.sh)
         cs.ref_pocs = [[], []]
         cs.ref_planes = [[], []]
@@ -524,8 +799,9 @@ class StreamDecoder:
         cs.ref_scaled = [[], []]  # (scaling, ref_pps) or None per ref (RPR)
         cs.per_slice_rpl = False
         cs.slice_ref_sets = [None] * len(cs.shs)
+        pic_error = False
         if sh_ref.is_intra:
-            return
+            return pic_error
         sets_by_key: dict = {}
         first_key = None
         for si, s in enumerate(cs.shs):
@@ -533,17 +809,50 @@ class StreamDecoder:
                 continue
             key = self._rpl_key(s)
             if key not in sets_by_key:
-                sets_by_key[key] = self._build_ref_set(f, cs, s)
+                st, err = self._build_ref_set(f, cs, s)
+                sets_by_key[key] = st
+                pic_error = pic_error or err
             cs.slice_ref_sets[si] = sets_by_key[key]
             if first_key is None:
                 first_key = key
         cs.per_slice_rpl = len(sets_by_key) > 1
         (cs.ref_pocs, cs.ref_planes, cs.ref_cols, cs.ref_scaled,
          cs.check_ldc) = sets_by_key[first_key]
+        return pic_error
 
     def _reconstruct(self, f: ParsedFrame) -> None:
         if self._random_access_skip(f):
             return
+        try:
+            if f.broken:
+                raise RuntimeError("picture broken during parse")
+            self._reconstruct_inner(f)
+        except Exception as e:
+            if self.err_policy != "conceal" or is_device_fault(e):
+                raise
+            # broken picture: grey-fill, keep referenceable, mark error
+            # (DecLib::sanitizeBrokenPicture, Picture::ensureUsableAsRef).
+            # The grey planes replace whatever the failed picture left
+            # under its POC; its refined MVs never reach the motion field
+            from vvdec_tpu_torch.dpb import DecodedPicture
+            from vvdec_tpu_torch.frame.inter_np import ColMotion
+            cs = f.cs
+            cs.dmvr_fixups = ()
+            self.error_pictures += 1
+            planes = self._store_grey(f.poc, cs)
+            self._ref_cols[f.poc] = ColMotion(cs, f.poc)
+            self._ref_pps[f.poc] = cs.pps
+            self.plm.add(DecodedPicture(
+                poc=f.poc, planes=[u16_view(p) for p in planes],
+                bit_depth=cs.sps.bit_depth, is_idr=f.is_idr, sei=f.sei,
+                width=cs.w, height=cs.h,
+                chroma_format_idc=cs.sps.chroma_format_idc, error=True,
+                vui=cs.sps.vui, hrd=cs.sps.hrd_params))
+
+    def _reconstruct_inner(self, f: ParsedFrame) -> None:
+        if f.walk_future is not None:
+            fut, f.walk_future = f.walk_future, None
+            fut.result()  # join the picture's CABAC walk (re-raises)
         from vvdec_tpu_torch.dpb import DecodedPicture
         from vvdec_tpu_torch.frame.inter_np import ColMotion
 
@@ -557,7 +866,7 @@ class StreamDecoder:
             self._ref_cols.clear()
             self._ref_pps.clear()
         self._num_reorder = cs.sps.num_reorder_pics[-1]
-        self._resolve_ref_sets(f, cs)
+        pic_error = self._resolve_ref_sets(f, cs)
         from vvdec_tpu_torch.utils.trace import msg, profiler, trace, INFO
         t_pic = time.monotonic()
         # full device pipeline: ITX + MC + intra chain + filters + packing
@@ -657,7 +966,7 @@ class StreamDecoder:
             pending=deferred,
             bit_depth=cs.sps.bit_depth,
             is_idr=f.is_idr, sei=f.sei, width=cs.w, height=cs.h,
-            chroma_format_idc=cs.sps.chroma_format_idc,
+            chroma_format_idc=cs.sps.chroma_format_idc, error=pic_error,
             needed_for_output=needed, vui=cs.sps.vui,
             hrd=cs.sps.hrd_params))
 
@@ -717,17 +1026,34 @@ class StreamDecoder:
                             f"{poc}: {got.hex()} != {dph.digest.hex()}")
 
 
-def decode_annexb(data: bytes, device=None) -> list[list[np.ndarray]]:
+def is_device_fault(exc: BaseException) -> bool:
+    """Whether an exception comes from the device rather than from the
+    stream: a kernel's build, load or launch (KernelError), CUDA out of
+    memory, or any other error the CUDA runtime raised (torch's
+    AcceleratorError where the installed torch has it, else a
+    RuntimeError whose message names CUDA).  Concealment never hides
+    these: they raise under err_policy="conceal" too."""
+    from vvdec_tpu_torch.ops.cuda._build import KernelError
+    if isinstance(exc, (KernelError, torch.cuda.OutOfMemoryError)):
+        return True
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(exc, accel):
+        return True
+    return isinstance(exc, RuntimeError) and "cuda" in str(exc).lower()
+
+
+def decode_annexb(data: bytes, device=None,
+                  threads: int = 0) -> list[list[np.ndarray]]:
     """Full decode: Annex-B stream -> list of frames in output order, each a
     list of uint16 planes (Y, Cb, Cr), reconstructed on `device` (default
     CUDA; pass "cpu" to run on the CPU)."""
-    dec = StreamDecoder(device=device)
+    dec = StreamDecoder(device=device, threads=threads)
     pics = dec.push(data)
     pics.extend(dec.flush())
     return [p.planes for p in pics]
 
 
-def decode_to_yuv(data: bytes, device=None) -> bytes:
+def decode_to_yuv(data: bytes, device=None, threads: int = 0) -> bytes:
     """Decode to the vvdecapp YUV output format: planar LE, one byte per
     sample for 8-bit streams, two bytes otherwise (vvdecHelper.h
     writeYUVToFile sample packing)."""
@@ -741,8 +1067,42 @@ def decode_to_yuv(data: bytes, device=None) -> bytes:
             bd = parse_sps(full).bit_depth
             break
     parts = []
-    for planes in decode_annexb(data, device=device):
+    for planes in decode_annexb(data, device=device, threads=threads):
         for p in planes:
             parts.append(p.astype("u1" if bd == 8 else "<u2",
                                   copy=False).tobytes())
     return b"".join(parts)
+
+
+def main(argv: list[str] | None = None) -> int:
+    """CLI decoder: the vvdecapp equivalent (vvdecapp.cpp:main).
+
+    Usage: python -m vvdec_tpu_torch.decoder BITSTREAM [OUT.yuv]
+    [--device {cuda,cpu}]
+    Prints per-stream summary; OUT.yuv is 16-bit LE planar (vvdecapp format).
+    """
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="vvdec_tpu_torch",
+                                 description="PyTorch/CUDA VVC decoder")
+    ap.add_argument("bitstream", help="Annex-B .266 input")
+    ap.add_argument("output", nargs="?", help="YUV output (16-bit LE planar)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the reconstruction runs (default cuda)")
+    args = ap.parse_args(argv)
+
+    data = open(args.bitstream, "rb").read()
+    t0 = time.monotonic()
+    yuv = decode_to_yuv(data, device=args.device)
+    dt = time.monotonic() - t0
+    if args.output:
+        with open(args.output, "wb") as f:
+            f.write(yuv)
+    n = sum(1 for _ in parse_annexb(data))
+    print(f"vvdec_tpu_torch: {n} frames decoded in {dt:.3f}s "
+          f"({n / dt:.2f} fps)", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

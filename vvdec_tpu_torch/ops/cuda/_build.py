@@ -3,8 +3,9 @@
 Route (b) of the port's kernel build: nvcc compiles each source, which
 has a plain C interface, for sm_90a into build/kernels/ at the repository
 root, keyed by a hash of the source and the flags; ctypes loads it.  A
-build runs once per process and source; a failed build raises with the
-compiler's output.  Nothing runs at import time.
+build runs once per process and source; a failed build raises
+KernelError with the compiler's output, and so does a library ctypes
+cannot load.  Nothing runs at import time.
 """
 
 from __future__ import annotations
@@ -26,11 +27,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _loaded: dict = {}
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build, load or launch.  A fault of
+    the device, never of the stream: the decoder's concealment lets it
+    through (decoder.is_device_fault)."""
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (PATH, /usr/local/cuda/bin)")
+    raise KernelError("nvcc not found (PATH, /usr/local/cuda/bin)")
 
 
 def library_path(name: str) -> str:
@@ -52,9 +59,13 @@ def build_kernel(name: str) -> str:
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
     try:
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        try:
+            r = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=600)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            raise KernelError(f"nvcc failed for csrc/{name}.cu: {e}") from e
         if r.returncode != 0:
-            raise RuntimeError(
+            raise KernelError(
                 f"nvcc failed for csrc/{name}.cu (rc {r.returncode}):\n"
                 f"{r.stdout}\n{r.stderr}")
         os.replace(tmp, out)
@@ -68,6 +79,10 @@ def load_kernel(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(build_kernel(name))
+        path = build_kernel(name)
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError as e:
+            raise KernelError(f"cannot load {path}: {e}") from e
         _loaded[name] = lib
     return lib

@@ -345,7 +345,8 @@ def _launch(fn, coef, resi, table, n_tasks, pool, bit_depth) -> None:
                                    pool.data_ptr(), _s2(bit_depth),
                                    level_bytes, stream)
     if err != 0:
-        raise RuntimeError(f"{fn}: kernel launch failed (cudaError {err}) "
+        from vvdec_tpu_torch.ops.cuda._build import KernelError
+        raise KernelError(f"{fn}: kernel launch failed (cudaError {err}) "
                            f"for {n_tasks} tasks")
 
 

@@ -41,6 +41,15 @@ bytes and the pins against the JAX package.
   LMCS, so the B pictures take the host reconstruction and the device
   filter chain (LMCS_INTER_CENSUS); they read the IDR back from the
   device and enter the device DPB.
+
+The concealment cases (CONCEAL_CASES) are the inter-LD stream with one
+fault each, for err_policy="conceal": "conceal-lost" drops the NAL of
+the P picture POC 5, so POC 6 substitutes the closest decoded picture
+for it; "conceal-broken" overwrites the last 8 bytes of POC 6's slice,
+which the parse rejects, so POC 6 is grey-filled and kept as a
+reference; "cut-<POC>" ends the stream in the middle of that picture's
+slice, which is then grey.  Their pins are vvdec_tpu's host golden
+decoder's with err_policy="conceal" (tests/test_torch_conceal_streams.py).
 """
 
 from __future__ import annotations
@@ -105,6 +114,46 @@ LMCS_INTER_MD5 = "a41c28eea9099960a03bcf1f8c2b4761"
 # C paths off) and filtered on the device
 LMCS_INTER_CENSUS = {"device_recon:lmcs_inter": 2, "inter_c:lmcs": 2,
                      "intra_c:lmcs": 2, "tu_python": 1938, "tu_native": 0}
+
+
+# the headline stream's first frame alone (its 1-frame stream)
+HEADLINE_FIRST_MD5 = "836c38dbff68403b7f4001a24b57a573"
+
+# name -> (fault, POC of the faulty picture, pictures output, the POCs
+# output with DecodedPicture.error set, StreamDecoder.error_pictures,
+# grey-filled pictures, MD5 of the YUV)
+CONCEAL_CASES = {
+    "conceal-lost": ("lost", 5, 11, (6,), 1, 0,
+                     "887ee90baabaa2ec53e70c6b564dc0f2"),
+    "conceal-broken": ("broken", 6, 12, (6,), 1, 1,
+                       "60275778017e83afa0e21648d0106e68"),
+    "cut-3": ("cut", 3, 4, (3,), 1, 1, "fc09d6822290bc5d6aff627799f15e6c"),
+    "cut-6": ("cut", 6, 7, (6,), 1, 1, "cb39571919da059d06045ab9ee7df67f"),
+    "cut-9": ("cut", 9, 10, (9,), 1, 1, "22a9bf87e69daeddbe39399e3d2a0adb"),
+    "cut-11": ("cut", 11, 12, (11,), 1, 1,
+               "813b3d5255d745e60326e5999645bb12"),
+}
+
+
+def conceal_variant(stream: bytes, fault: str, poc: int) -> bytes:
+    """`stream` (one single-slice picture per VCL NAL, in POC order, as
+    inter_ld_stream makes it) with one fault at picture `poc`: "lost"
+    drops its NAL, "broken" sets its last 8 bytes to 0xff, "cut" ends
+    the stream in the middle of it."""
+    from vvdec_tpu_torch.bitstream.nal import is_vcl, split_annexb
+    vcl = [(off, off + size) for off, size in split_annexb(stream)
+           if is_vcl(stream[off + 1] >> 3)]
+    # a NAL runs from its start code (3 or 4 bytes) to the next one
+    a = vcl[poc][0] - (4 if stream[vcl[poc][0] - 4:vcl[poc][0]]
+                       == b"\x00\x00\x00\x01" else 3)
+    b = vcl[poc][1]
+    if fault == "lost":
+        return stream[:a] + stream[b:]
+    if fault == "broken":
+        return stream[:b - 8] + b"\xff" * 8 + stream[b:]
+    if fault == "cut":
+        return stream[:(a + b) // 2]
+    raise ValueError(f"unknown fault {fault!r}")
 
 
 def headline_stream() -> bytes:
