@@ -67,7 +67,22 @@ result line:
    alternating order, each on HEADLINE_MD5, with the workers' ITX
    launches, their CUDA caching allocators' peaks and the card's used
    memory before and while the pool is up.  The ITX kernel is held to
-   its plain version on every frame (a) and (b) record.
+   its plain version on every frame (a) and (b) record;
+11. the multi-device path, every mesh device cuda:0 (the machine has
+   one card): (a) the SAO/ALF stream's first 2 pictures over a
+   ("frame", "row") = (2, 2) mesh and its first picture over a ("row",)
+   = 4 mesh (480 rows padded to 512), each bit-equal to the whole-frame
+   chain; (b) filter_frames_device_batch over its 4 pictures, bit-equal
+   to the per-frame chain, with the batch's device kernels beside 4x
+   one picture's; (c) the device-resident DPB: the inter-LD stream's
+   first 4 pictures round robin over 4 mesh devices, bit-equal to the
+   per-frame decode; (d) the sequential intra scan of the headline's
+   first 2 pictures through frame_parallel over the frame axis,
+   bit-equal to the wavefront, with units per frame and ms per unit;
+   (e) decode_annexb_multihost in 2 spawned gloo ranks (file store) on
+   the card over the headline stream, on HEADLINE_MD5, with each rank's
+   card memory.  Every device picture of (a)-(d) makes one ITX launch,
+   held to the plain version.
 
 Every timed decode also checks the decoder's fallback census: empty on
 every stream but inter-LMCS and the concealment cases' grey pictures.
@@ -76,7 +91,8 @@ Each phase prints its wall time.  The last three lines of standard
 output are the kernels' JSON summary, the card's name and power limit,
 and {"ok": true, "device": ...}.  In the summary, launches counts the
 ITX launches of the timed decodes of all eight streams and of phase 10's
-in-process decodes (not those of the CLI's or the pool's processes),
+and 11's in-process decodes (not those of the CLI's, the pool's or the
+ranks' processes),
 and max_abs_err covers every comparison of the kernel with its plain
 version; ms,
 plain_ms and bound_ms are per decoded frame of the headline stream: ms
@@ -614,7 +630,7 @@ def phase_tool_set(errs: list) -> dict:
     for name in ("tool-rich", "SAO/ALF", "LMCS"):
         builder, n_frames, md5_pin = STREAMS[name]
         t0 = time.perf_counter()
-        stream = builder()
+        stream = BUILT[name] = builder()
         print(f"[{name}] stream 832x480 x {n_frames} frames, {len(stream)} "
               f"bytes, made in {time.perf_counter() - t0:.1f} s")
         recorded = recording_decode(stream, name)
@@ -1170,6 +1186,154 @@ def phase_pool() -> dict:
                 per_worker_mib=(warm - before) / workers)
 
 
+def device_kernel_count(fn) -> int:
+    """The device kernels and copies one fn() puts in a torch.profiler
+    trace (after a warm call); the tracer can lose events, so this is a
+    floor of what fn() launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def phase_multidevice(errs: list) -> dict:
+    """11. The multi-device path on the one card, every mesh device
+    cuda:0: (a) the SAO/ALF stream's first 2 pictures over a ("frame",
+    "row") = (2, 2) mesh and its first picture over a ("row",) = 4 mesh
+    (480 rows padded to 512), each bit-equal to the whole-frame chain;
+    (b) filter_frames_device_batch over its 4 pictures, bit-equal to the
+    per-frame chain, with the device kernels of the batch beside 4x one
+    picture's; (c) the device-resident DPB over the inter-LD stream's
+    first 4 pictures, round robin over 4 mesh devices, bit-equal to the
+    per-frame decode; (d) the sequential intra scan of the headline's
+    first 2 pictures through frame_parallel over a 2-device frame axis,
+    bit-equal to the wavefront, with units per frame and ms per unit;
+    (e) decode_annexb_multihost in 2 spawned gloo ranks over the
+    headline stream, on HEADLINE_MD5, with each rank's card memory.  In
+    (a)-(d) every device picture makes one ITX launch, held to the plain
+    version."""
+    import numpy as np
+    import torch
+
+    import vvdec_tpu_torch.ops.frame_device as frame_device
+    from vvdec_tpu_torch.ops import device_pipeline as dp
+    from vvdec_tpu_torch.ops.cuda.itx import itx_frame_cuda
+    from vvdec_tpu_torch.parallel import dryrun
+    from vvdec_tpu_torch.parallel.distributed import decode_annexb_spawned
+    from vvdec_tpu_torch.parallel.sharding import Mesh, make_decode_mesh
+    from vvdec_tpu_torch.streams import HEADLINE_MD5, STREAMS
+    card = torch.device("cuda:0")
+    out: dict = {}
+    recorded: list = []
+    itx_frame_cuda.launches = 0
+    pictures = 0
+    frame_device.itx_frame_cuda = itx_recorder(recorded)
+    try:
+        # (a) the sharded chain
+        items = dryrun.capture_filter_inputs(built("SAO/ALF"), card, n=4)
+        pictures += 4
+        fail_unless(len(items) == 4, f"captured {len(items)} pictures")
+        keys = [dp._frame_key_arrays(cs, [tuple(p.shape) for p in pl])[0]
+                for cs, pl in items]
+        fr = dryrun.sharded_chain_parity(
+            items[:2], make_decode_mesh(4, rows=2, devices=[card] * 4))
+        row = dryrun.sharded_chain_parity(
+            items[:1], Mesh(np.array([card] * 4), ("row",)))
+        h, ctu = items[0][1][0].shape[0], items[0][0].sps.ctu_size
+        print(f"[multi] (a) SAO/ALF (ALF bank counts "
+              f"{[k[16] for k in keys]}): 2 pictures over ('frame', 'row') "
+              f"= (2, 2) in {fr['seconds'] * 1e3:.1f} ms and 1 picture over "
+              f"('row',) = 4 ({h} rows padded to "
+              f"{-(-h // (4 * ctu)) * ctu * 4}) in "
+              f"{row['seconds'] * 1e3:.1f} ms, bit-equal to the whole-frame "
+              f"chain")
+        out["sharded"] = dict(frame_row=fr, row=row)
+
+        # (b) the batched chain
+        batch = dp.filter_frames_device_batch(items)
+        for i, (pf, (cs, planes)) in enumerate(zip(batch, items)):
+            for c, (a, b) in enumerate(zip(
+                    pf.resolve(), dp.filter_frame_device(cs, planes)
+                    .resolve())):
+                fail_unless(np.array_equal(a, b), f"batched chain picture "
+                            f"{i} plane {c} != per-frame chain")
+
+        def run_batch():
+            dp.filter_frames_device_batch(items)
+
+        def run_frames():
+            for cs, planes in items:
+                dp.filter_frame_device(cs, planes)
+
+        k_batch = device_kernel_count(run_batch)
+        k_one = device_kernel_count(lambda: dp.filter_frame_device(*items[0]))
+        ms_batch = cuda_ms(run_batch, 3)
+        ms_frames = cuda_ms(run_frames, 3)
+        print(f"[multi] (b) filter_frames_device_batch of 4 pictures: "
+              f"{k_batch} device kernels/copies against 4 x {k_one} = "
+              f"{4 * k_one} for 4 per-frame chains; {ms_batch:.2f} ms against"
+              f" {ms_frames:.2f} ms per 4 pictures (stream time); bit-equal")
+        out["batch"] = dict(kernels=k_batch, kernels_one=k_one,
+                            ms=ms_batch, ms_per_frame_chains=ms_frames)
+
+        # (c) the device-resident DPB
+        dpb = dryrun.device_dpb_parity(built("inter-LD"), [card] * 4, n=4)
+        pictures += 8   # the per-frame decode and the DPB's
+        print(f"[multi] (c) device-resident DPB: inter-LD's first "
+              f"{dpb['pictures']} pictures round robin over 4 mesh devices "
+              f"in {dpb['seconds']:.2f} s, {dpb['itx_launches']} ITX "
+              f"launches; bit-equal to the per-frame decode")
+        fail_unless(dpb["itx_launches"] == dpb["pictures"],
+                    f"{dpb['itx_launches']} ITX launches for "
+                    f"{dpb['pictures']} DPB pictures")
+        out["dpb"] = dpb
+
+        # (d) the sequential scan over the frame axis
+        scan = dryrun.frame_parallel_scan_parity(
+            built("headline"), Mesh(np.array([card] * 2), ("frame",)), n=2)
+        pictures += 2
+        print(f"[multi] (d) sequential intra scan, headline's first 2 "
+              f"pictures over a 2-device frame axis: "
+              f"{scan['units_per_frame']:.1f} units per frame, "
+              f"{scan['seconds']:.2f} s = {scan['ms_per_unit']:.3f} ms per "
+              f"unit; bit-equal to the wavefront")
+        out["seq_scan"] = scan
+    finally:
+        frame_device.itx_frame_cuda = itx_frame_cuda
+    launches = itx_frame_cuda.launches
+    fail_unless(launches == pictures == len(recorded), f"{launches} ITX "
+                f"launches, {len(recorded)} recorded, for {pictures} device "
+                f"pictures")
+    check_frames(recorded, errs, "multi")
+
+    # (e) two gloo ranks on the card
+    t0 = time.perf_counter()
+    frames, reports = decode_annexb_spawned(built("headline"), ranks=2)
+    dt = time.perf_counter() - t0
+    md5 = yuv_md5([planes for _, planes in frames])
+    n_frames = STREAMS["headline"][1]
+    for r in reports:
+        print(f"[multi] (e) rank {r['rank']} (pid {r['pid']}, {r['device']}):"
+              f" decode {r['decode_s']:.2f} s, {r['itx_launches']} ITX "
+              f"launches, card memory: max allocated "
+              f"{r['max_memory_allocated'] / 2**20:.0f} MiB, max reserved "
+              f"{r['max_memory_reserved'] / 2**20:.0f} MiB")
+    print(f"[multi] (e) decode_annexb_multihost, 2 gloo ranks (file store): "
+          f"{len(frames)} frames in {dt:.2f} s (spawn included); md5 {md5}")
+    fail_unless(len(frames) == n_frames and md5 == HEADLINE_MD5,
+                f"2 ranks: {len(frames)} frames, md5 {md5}")
+    fail_unless(sum(r["itx_launches"] for r in reports) == n_frames,
+                f"the ranks' ITX launches {reports}")
+    out["ranks"] = dict(reports=reports, seconds=dt, md5=md5)
+    return dict(out, launches=launches)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the details as JSON here")
@@ -1214,13 +1378,15 @@ def main(argv=None) -> int:
                                      phase_conceal, errs),
                        cli=timed("public surface: cli", phase_cli),
                        pool=timed("public surface: pool", phase_pool))
+        multi = timed("multi-device", phase_multidevice, errs)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     launches = main_path["launches"] + sum(
         r["launches"] for r in (*tool_set.values(), inter["inter-LD"],
                                 inter["inter-LDB tools"], ra, host,
-                                surface["api"], surface["conceal"]))
+                                surface["api"], surface["conceal"],
+                                multi))
     kernels = [dict(
         name="itx_frame", route="cuda", source="vvdec_tpu_torch/csrc/itx.cu",
         replaces="vvdec_tpu/ops/pallas/itx.py:96",
@@ -1233,7 +1399,8 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kernels=kernels, main_path=main_path,
                            tool_set=tool_set, inter=inter, ra=ra,
-                           host_recon=host, public_surface=surface), f,
+                           host_recon=host, public_surface=surface,
+                           multi_device=multi), f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -249,22 +249,41 @@ def test_stream_fault_in_itx_is_concealed(monkeypatch):
     assert dec.error_pictures == 2
 
 
+def _dpb_after_each_picture(dec) -> dict:
+    """POC -> (device DPB, host planes, motion) as each picture left
+    them, recorded while `dec` decodes."""
+    after = {}
+    inner = dec._reconstruct_inner
+
+    def spy(f):
+        inner(f)
+        after[f.poc] = (dict(dec._refs_dev), dict(dec._refs_host),
+                        dict(dec._ref_cols))
+
+    dec._reconstruct_inner = spy
+    return after
+
+
 def test_grey_and_substituted_refs_enter_device_dpb():
     """Lost IDR: POC 1 substitutes a grey POC 0 (no picture decoded yet),
     which enters the device DPB as torch planes, the host planes and the
-    motion; POC 2 reads POC 1, decoded on the device."""
+    motion; POC 2 reads POC 1, decoded on the device, and the grey POC 0,
+    which POC 2's RPL no longer names, leaves the DPB."""
     from vvdec_tpu_torch.decoder import StreamDecoder
     nals = _inter_stream(3)
     dec = StreamDecoder(device="cpu", err_policy="conceal")
+    after = _dpb_after_each_picture(dec)
     pics = dec.push(nals[0] + b"".join(nals[2:])) + dec.flush()
     assert [p.poc for p in pics] == [1, 2]
-    assert sorted(dec._refs_dev) == sorted(dec._refs_host) \
-        == sorted(dec._ref_cols) == [0, 1, 2]
-    grey = dec._refs_dev[0]
+    dev, host, cols = after[1]
+    assert sorted(dev) == sorted(host) == sorted(cols) == [0, 1]
+    grey = dev[0]
     assert all(t.dtype == torch.int32 and t.device == dec.device
                and bool((t == 512).all()) for t in grey)
-    assert all((p == 512).all() for p in dec._refs_host[0])
-    assert [t.shape for t in grey] == [t.shape for t in dec._refs_dev[1]]
+    assert all((p == 512).all() for p in host[0])
+    assert [t.shape for t in grey] == [t.shape for t in dev[1]]
+    assert sorted(dec._refs_dev) == sorted(dec._refs_host) \
+        == sorted(dec._ref_cols) == [1, 2]
 
 
 def test_substitute_takes_closest_poc():
@@ -277,10 +296,12 @@ def test_substitute_takes_closest_poc():
     port = _check("lost POC 2", data)
     assert port[2] == [False, False, True]
     dec = StreamDecoder(device="cpu", err_policy="conceal")
+    after = _dpb_after_each_picture(dec)
     dec.push(data)
     dec.flush()
-    assert dec._refs_dev[2] is dec._refs_dev[1]
-    assert dec._ref_cols[2] is dec._ref_cols[1]
+    assert after[3][0][2] is after[1][0][1]
+    assert after[3][2][2] is after[1][2][1]
+    assert sorted(after[3][0]) == [2, 3]
     assert dec.error_pictures == 1
 
 

@@ -21,9 +21,10 @@ sends a picture to the host: no option or environment variable forces
 either path, and a CUDA error, a failed kernel build or a missing card
 raises.  Inter pictures resolve their reference sets per slice and read
 their references from the device DPB (`_refs_dev`: each decoded
-picture's filtered planes, kept on the device until the next IDR); a
-host-reconstructed picture reads them back once per POC (`_refs_host`)
-and enters the device DPB itself.  A missing reference raises
+picture's filtered planes, kept on the device until no reference
+picture list of a later picture names it, VVC's "unused for reference"
+marking); a host-reconstructed picture reads them back once per POC
+(`_refs_host`) and enters the device DPB itself.  A missing reference raises
 ValueError, as the reference's strict mode does; with
 err_policy="conceal" a lost reference is substituted and a broken
 picture grey-filled, both entering the device DPB, as the reference
@@ -661,8 +662,8 @@ class StreamDecoder:
 
     def _ref_planes_of(self, poc: int) -> list:
         """A DPB picture's int32 host planes: a device picture resolves
-        its output readback once, and the planes stay cached by POC until
-        the next IDR."""
+        its output readback once, and the planes stay cached by POC while
+        the picture is a reference."""
         v = self._refs_host[poc]
         if isinstance(v, _DeferredFrame):
             v = v.resolve_int32()
@@ -713,6 +714,36 @@ class StreamDecoder:
                 for e in rpl.entries))
         return tuple(out)
 
+    def _entry_poc(self, f, cs, e) -> int:
+        """The POC an RPL entry names: a short-term delta, or a long-term
+        reference matched by POC LSB against the DPB, or by full POC
+        when the MSB cycle is signalled (Slice::constructRefPicLists +
+        xGetLongTermRefPic)."""
+        if not e.is_long_term:
+            return f.poc + e.value
+        max_lsb = cs.sps.max_poc_lsb
+        if e.delta_poc_msb_present:
+            return (e.value + f.poc - e.delta_poc_msb_cycle * max_lsb
+                    - (f.poc & (max_lsb - 1)))
+        return next((p for p in sorted(self._refs_dev, reverse=True)
+                     if (p & (max_lsb - 1)) == e.value), e.value)
+
+    def _mark_unused(self, f, cs) -> None:
+        """Reference picture marking (VVC 8.3.3): a DPB picture that no
+        entry of this picture's RPLs names, active or not, in any slice,
+        is unused for reference from now on, and leaves the device DPB
+        with its host planes, its motion and its PPS.  Called after the
+        picture's reference sets are resolved, so a lost reference is
+        concealed from the DPB the previous picture left."""
+        named = {self._entry_poc(f, cs, e)
+                 for s in cs.shs for rpl in s.rpl if rpl is not None
+                 for e in rpl.entries}
+        for poc in [p for p in self._refs_dev if p not in named]:
+            del self._refs_dev[poc]
+            self._refs_host.pop(poc, None)
+            self._ref_cols.pop(poc, None)
+            self._ref_pps.pop(poc, None)
+
     def _build_ref_set(self, f, cs, sh_ref):
         """Resolve one slice's RPLs: (ref_pocs, ref_planes, ref_cols,
         ref_scaled, check_ldc), plus a missing-reference error flag
@@ -729,22 +760,7 @@ class StreamDecoder:
             if rpl is None:
                 continue
             for e in rpl.entries:
-                if e.is_long_term:
-                    # long-term reference: match by POC LSB, or by full
-                    # POC when the MSB cycle is signalled
-                    # (Slice::constructRefPicLists + xGetLongTermRefPic)
-                    max_lsb = cs.sps.max_poc_lsb
-                    if e.delta_poc_msb_present:
-                        ref_poc = (e.value + f.poc
-                                   - e.delta_poc_msb_cycle * max_lsb
-                                   - (f.poc & (max_lsb - 1)))
-                    else:
-                        ref_poc = next(
-                            (p for p in sorted(self._refs_dev, reverse=True)
-                             if (p & (max_lsb - 1)) == e.value),
-                            e.value)
-                else:
-                    ref_poc = f.poc + e.value
+                ref_poc = self._entry_poc(f, cs, e)
                 ref_pocs[lst].append(ref_poc)
                 if ref_poc not in self._refs_dev:
                     if self.err_policy != "conceal":
@@ -867,6 +883,7 @@ class StreamDecoder:
             self._ref_pps.clear()
         self._num_reorder = cs.sps.num_reorder_pics[-1]
         pic_error = self._resolve_ref_sets(f, cs)
+        self._mark_unused(f, cs)
         from vvdec_tpu_torch.utils.trace import msg, profiler, trace, INFO
         t_pic = time.monotonic()
         # full device pipeline: ITX + MC + intra chain + filters + packing

@@ -70,6 +70,11 @@ def device_filter_reject_reason(cs) -> str | None:
     return None
 
 
+def device_filter_eligible(cs) -> bool:
+    """Whether the device chain models this picture's filter config."""
+    return device_filter_reject_reason(cs) is None
+
+
 def _edge_pad(a, top: int, bottom: int, left: int, right: int):
     """`a` [h, w] padded by replicating its edge rows and columns."""
     h, w = a.shape
@@ -193,11 +198,16 @@ def _expand_ctu(vals, rep_y: int, rep_x: int, out_h: int, out_w: int,
         [:out_h, :out_w]
 
 
-def _sao_plane(plane, sao_type, vals, *, h, w, ctu_w, ctu_h, w_ctu, bd):
+def _sao_plane(plane, sao_type, vals, *, h, w, ctu_w, ctu_h, w_ctu, bd,
+               row0=None, img_h=None):
     """SAO for one plane.  sao_type: [n_ctu] (255 = off); vals:
     [n_ctu, 6] compact offsets -- EO: (_, o0..o4); BO: (band, b0..b3, _).
     Neighbours are available inside the picture (the chain's gates), so
-    only the picture border trims the edge classes (sao_np._eo_mask)."""
+    only the picture border trims the edge classes (sao_np._eo_mask).
+
+    Row-sharded use: `row0` is the picture row of the plane's row 0 and
+    `img_h` the picture's height, so the top and bottom trimming applies
+    at the picture's edges rather than the shard's."""
     pel_max = (1 << bd) - 1
     band_shift = bd - 5
     c = plane.to(torch.int32)
@@ -226,7 +236,10 @@ def _sao_plane(plane, sao_type, vals, *, h, w, ctu_w, ctu_h, w_ctu, bd):
     ys = torch.arange(h, device=c.device)[:, None]
     xs = torch.arange(w, device=c.device)[None, :]
     on_x = (xs > 0) & (xs < w - 1)
-    on_y = (ys > 0) & (ys < h - 1)
+    if row0 is not None:
+        on_y = (ys + row0 > 0) & (ys + row0 < img_h - 1)
+    else:
+        on_y = (ys > 0) & (ys < h - 1)
     eo_diag = (typ != 0) & (typ != 1) & (typ != 4)
     mask = (typ == 4) | ((typ == 0) & on_x) | ((typ == 1) & on_y) \
         | (eo_diag & on_x & on_y)
@@ -770,3 +783,67 @@ def filter_frame_device(cs, planes) -> PendingFrame:
     out_planes, packed = fn(tuple(planes[:num_comp]), flat)
     return PendingFrame(out_planes, packed, shapes, cs.sps.bit_depth,
                         key[-1])
+
+
+_BANK_NAMES = (("banks_co", "banks_cl"), ("cbanks_co", "cbanks_cl"),
+               ("cc_banks",))
+
+
+def batch_key(per, at: int):
+    """The one static key of a batch of pictures [(key, arrays), ...]
+    whose keys may differ only in their three bank counts (key[at],
+    key[at + 1], key[at + 2]: luma, chroma and CC-ALF banks).  Those
+    become the batch's largest, and each picture's banks are padded in
+    place with zero banks, which none of its CTUs selects, so every
+    picture filters as it does alone.  Raises when another field of the
+    keys differs."""
+    keys = [k for k, _ in per]
+    if len({k[:at] + k[at + 3:] for k in keys}) != 1:
+        raise ValueError("pictures in one batch must share the static "
+                         "filter config")
+    counts = [max(k[at + i] for k in keys) for i in range(3)]
+    for _, arrays in per:
+        for names, n in zip(_BANK_NAMES, counts):
+            for name in names:
+                if name in arrays:
+                    a = np.asarray(arrays[name])
+                    arrays[name] = np.pad(
+                        a, [(0, n - a.shape[0])] + [(0, 0)] * (a.ndim - 1))
+    return keys[0][:at] + tuple(counts) + keys[0][at + 3:]
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_fn_batched(key):
+    """The chain of `_chain_fn(key)` over a leading frame axis in one
+    pass (torch.func.vmap): run(planes, flat) with planes [F, h, w] per
+    component and flat [F, n] -> (filtered planes [F, ...], packed
+    [F, n_bytes])."""
+    return torch.func.vmap(_chain_fn(key))
+
+
+def filter_frames_device_batch(items) -> list[PendingFrame]:
+    """Filter a batch of pictures [(cs, planes), ...] of one geometry and
+    filter config in one pass, the frames stacked on a leading axis
+    (planes: int32 tensors on one device).  Their ALF bank counts may
+    differ (`batch_key`).  Returns one PendingFrame per picture, each
+    with its readback started."""
+    for cs, _ in items:
+        reason = device_filter_reject_reason(cs)
+        if reason is not None:
+            raise NotImplementedError(f"device_filter:{reason}")
+    num_comp = items[0][0].num_comp
+    per = [_frame_key_arrays(cs, [tuple(p.shape) for p in planes[:num_comp]])
+           for cs, planes in items]
+    key = batch_key(per, 16)
+    shapes = [tuple(p.shape) for p in items[0][1][:num_comp]]
+    dev = items[0][1][0].device
+    with timed_stage("filter: params", dev):
+        fn = _chain_fn_batched(key)
+        flat = torch.as_tensor(
+            np.stack([_flat_pack(key, arrays) for _, arrays in per]),
+            device=dev)
+        planes = tuple(torch.stack([p[c] for _, p in items])
+                       for c in range(num_comp))
+    out_planes, packed = fn(planes, flat)
+    return [PendingFrame(tuple(o[i] for o in out_planes), packed[i], shapes,
+                         key[4], key[-1]) for i in range(len(items))]

@@ -7,8 +7,9 @@ Port of vvdec_tpu/ops/intra_device.py (the wavefront path, mode classes
 cubic / gauss / chroma interpolation filters; MIP; CCLM off the luma
 plane as the earlier steps left it; intra LMCS: the VPDU chroma
 residual scale and the inverse luma map; the CIIP blend, class 5,
-over the raw inter prediction the MC stage left in the plane).  The
-sequential debug scan is not ported.
+over the raw inter prediction the MC stage left in the plane), and the
+sequential scan (`_intra_scan_fn`, one unit a step, `run_intra_scan(...,
+scan="seq")`), the parity baseline the wavefront reorders.
 
 The reference-sample geometry (availability, substitution, replication;
 xFillReferenceSamples, IntraPrediction.cpp:1161) is value-independent,
@@ -828,6 +829,137 @@ def _intra_wavefront_fn(bd: int, cfmt: int, collocated: bool,
     return run
 
 
+def _host_start(start: int, size: int, dim: int) -> int:
+    """_win_start for one host int: the start lax.dynamic_slice uses."""
+    if start < 0:
+        start += dim
+    return min(max(start, 0), dim - size)
+
+
+def _make_unit_kernels(bd: int, cfmt: int, collocated: bool, ctu_log2: int,
+                       cf, gf):
+    """The 6 prediction kernels of one unit, by mode class d[7], each
+    (top, left, plane, luma, d, hd) -> [1, B, B] predicted block (before
+    the residual): top / left [1, RL] its references, plane [H, W] its
+    component's plane, luma the luma plane, d its [1, D] descriptor row
+    on the device and hd the same row on the host, which picks what the
+    kernel evaluates (PDPC, the interpolation filter, the MIP size class,
+    the CIIP window) without a device sync."""
+    pel_max = (1 << bd) - 1
+
+    def pdpc(p, top, left, d, hd):
+        return _pdpc_dc_planar(p, top, left, d) if hd[27] == 1 else p
+
+    def k_planar(top, left, plane, luma, d, hd):
+        return pdpc(_pred_planar(top, left, d), top, left, d, hd)
+
+    def k_dc(top, left, plane, luma, d, hd):
+        return pdpc(_pred_dc(top, left, d), top, left, d, hd)
+
+    def k_ang(top, left, plane, luma, d, hd):
+        return _pred_angular(top, left, d, pel_max, cf, gf,
+                             {min(max(int(hd[26]), 0), 3)})
+
+    def k_mip(top, left, plane, luma, d, hd):
+        return _pred_mip(top, left, d, bd, [min(max(int(hd[26]), 0), 2)])
+
+    def k_cclm(top, left, plane, luma, d, hd):
+        return _pred_cclm(top, left, d, luma, bd, cfmt, collocated, ctu_log2)
+
+    def k_ciip(top, left, plane, luma, d, hd):
+        # planar intra blended 1:3..3:1 with the raw inter prediction the
+        # MC stage left in the plane (d[24] = w_intra, d[25] = w_merge)
+        p = k_planar(top, left, plane, luma, d, hd)
+        y0 = _host_start(int(hd[2]), B, plane.shape[0])
+        x0 = _host_start(int(hd[1]), B, plane.shape[1])
+        cur = plane[y0:y0 + B, x0:x0 + B][None]
+        return (_col(d, 25) * cur + _col(d, 24) * p + 2) >> 2
+
+    return [k_planar, k_dc, k_ang, k_mip, k_cclm, k_ciip]
+
+
+def _make_unit_update(bd: int, cfmt: int, collocated: bool, ctu_log2: int,
+                      cf, gf, has_lmcs: bool = False):
+    """One prediction unit's gather -> predict -> reconstruct -> masked
+    write, in place on its plane: update(plane, luma, resi, d, hd, lm)
+    with d the unit's [1, D] device row whose comp field (d[0]) is 0,
+    since `plane` is already the unit's own, and hd its host row."""
+    pel_max = (1 << bd) - 1
+    kernels = _make_unit_kernels(bd, cfmt, collocated, ctu_log2, cf, gf)
+    num_nb = min(64, 1 << ctu_log2)
+
+    def update(plane, luma, resi, d, hd, lm=None):
+        top, left = _gather_refs(plane[None], d, bd)
+        blk = kernels[min(max(int(hd[7]), 0), 5)](top, left, plane, luma,
+                                                   d, hd)
+        ry = _host_start(int(hd[2]), B, resi.shape[0])
+        rx = _host_start(int(hd[1]), B, resi.shape[1])
+        r = resi[ry:ry + B, rx:rx + B][None]
+        if has_lmcs and hd[29] & 1:
+            scale = _chroma_scale_dev(luma, d, lm, bd, num_nb)
+            r = _scale_signal_dev(r, scale[:, None, None], bd)
+        out = torch.clamp(blk + r, 0, pel_max) if hd[9] == 1 \
+            else torch.clamp(blk, 0, pel_max)
+        # the masked write: the unit's h x w corner of the window
+        y0 = _host_start(int(hd[2]), B, plane.shape[0])
+        x0 = _host_start(int(hd[1]), B, plane.shape[1])
+        h, w = min(int(hd[4]), B), min(int(hd[3]), B)
+        if hd[28] == 1 and h > 0 and w > 0:
+            plane[y0:y0 + h, x0:x0 + w] = out[0, :h, :w].to(plane.dtype)
+
+    return update
+
+
+@functools.lru_cache(maxsize=None)
+def _intra_scan_fn(bd: int, cfmt: int = 1, collocated: bool = True,
+                   ctu_log2: int = 7, has_lmcs: bool = False):
+    """The sequential intra scan: one unit a step, in descriptor order.
+
+    run(planes, resis, desc, lm=None): planes / resis are 3 padded int32
+    tensors on one device (planes are not modified); desc is the host's
+    [n, D] descriptor array, whose rows pick each step's plane (d[0])
+    and kernel (d[7]) without a device sync; lm is the LMCS table on
+    that device, read only with has_lmcs.  Returns the 3 planes.  Each
+    plane is first zero-padded to at least RL x RL (the reference fill's
+    window), as the reference's scan pads it; a row with d[28] != 1 (a
+    padding row) writes nothing.  Bit-identical to the wavefront, which
+    reorders only units that do not read each other's output."""
+    updates: dict = {}   # the unit update of each device
+
+    def run(planes, resis, desc, lm=None):
+        desc = np.asarray(desc)
+        dev = planes[0].device
+        upd = updates.get(dev)
+        if upd is None:
+            upd = updates[dev] = _make_unit_update(
+                bd, cfmt, collocated, ctu_log2, *_angular_filters(dev),
+                has_lmcs)
+
+        def padded(p):
+            out = torch.zeros((max(p.shape[0], RL), max(p.shape[1], RL)),
+                              dtype=torch.int32, device=dev)
+            out[:p.shape[0], :p.shape[1]] = p
+            return out
+
+        shapes = [p.shape for p in planes]
+        P = [padded(p) for p in planes]
+        R = [padded(r) for r in resis]
+        dz = desc.copy()
+        dz[:, 0] = 0
+        dt = torch.as_tensor(dz, dtype=torch.int32, device=dev)
+        for i in range(desc.shape[0]):
+            hd = desc[i]
+            if hd[28] != 1:
+                continue
+            c = min(max(int(hd[0]), 0), 2)
+            mc = min(max(int(hd[7]), 0), 5)
+            with profiler.stage(STEP_STAGES[mc]):
+                upd(P[c], P[0], R[c], dt[i:i + 1], hd, lm)
+        return tuple(p[:s[0], :s[1]] for p, s in zip(P, shapes))
+
+    return run
+
+
 def _subsampling(cfmt: int) -> tuple:
     sub_w = 2 if cfmt in (1, 2) else 1
     sub_h = 2 if cfmt == 1 else 1
@@ -939,15 +1071,22 @@ def scan_key(cs) -> tuple:
             bool(cs.sps.chroma_ver_collocated), cs.sps.ctu_log2)
 
 
-def run_intra_scan(planes_pad, resi_pad, desc: np.ndarray, key, lmcs=None):
+def run_intra_scan(planes_pad, resi_pad, desc: np.ndarray, key, lmcs=None,
+                   scan: str = "wavefront"):
     """Run the intra chain on the planes' device.  planes_pad/resi_pad:
     3 padded int32 tensors; desc is the [n, D] host descriptor array;
     key = scan_key(cs); lmcs, when the picture uses LMCS, is the
-    build_lmcs_params table as an int32 tensor on that device.  The
-    wavefront is the only path: units are grouped by exact dependency
-    level into steps of at most WAVEFRONT_K."""
+    build_lmcs_params table as an int32 tensor on that device.  scan:
+    "wavefront" (units grouped by exact dependency level into steps of
+    at most WAVEFRONT_K) or "seq" (one unit a step, the parity baseline;
+    the reference's VVDEC_INTRA_SCAN=seq)."""
     if desc.shape[0] == 0:
         return tuple(planes_pad)
+    if scan == "seq":
+        return _intra_scan_fn(*key, lmcs is not None)(
+            tuple(planes_pad), tuple(resi_pad), desc, lmcs)
+    if scan != "wavefront":
+        raise ValueError(f"run_intra_scan: unknown scan {scan!r}")
     lvl = compute_unit_levels(desc, key[1])
     batches = build_wavefront_batches(desc, lvl, WAVEFRONT_K)
     fn = _intra_wavefront_fn(*key, WAVEFRONT_K, lmcs is not None)
