@@ -82,14 +82,27 @@ result line:
    (e) decode_annexb_multihost in 2 spawned gloo ranks (file store) on
    the card over the headline stream, on HEADLINE_MD5, with each rank's
    card memory.  Every device picture of (a)-(d) makes one ITX launch,
-   held to the plain version.
+   held to the plain version;
+12. the whole-frame stages of vvdec_tpu_torch/ops/pipeline.py: the first
+   picture of the headline, tool-rich and SAO/ALF streams, and both
+   pictures of the vb and tiles-ALF streams (virtual boundaries; a 2x2
+   tile grid of four
+   slices with loop filtering across them off, so ALF clamp windows and
+   per-slice deblocking offsets; the dense chain rejects both), each
+   through reconstruct_frame_torch, sao_frame_torch and alf_frame_torch
+   on the card and bit-equal to the vendored host golden on the same
+   parsed picture; every plain 2-D TU group without a scaling list is one
+   itx_batch_cuda launch, held to itx_batch_ref.  Per picture and stage
+   it prints host wall and CUDA-event ms, the ITX groups by route and
+   the deblocking cells per direction.
 
 Every timed decode also checks the decoder's fallback census: empty on
 every stream but inter-LMCS and the concealment cases' grey pictures.
 
 Each phase prints its wall time.  The last three lines of standard
 output are the kernels' JSON summary, the card's name and power limit,
-and {"ok": true, "device": ...}.  In the summary, launches counts the
+and {"ok": true, "device": ...}.  The summary has two entries for the
+one kernel, one per entry point.  In the itx_frame entry, launches counts the
 ITX launches of the timed decodes of all eight streams and of phase 10's
 and 11's in-process decodes (not those of the CLI's, the pool's or the
 ranks' processes),
@@ -102,7 +115,11 @@ by CUDA events, which adds the host's cost between launches.  bound_ms
 counts int16 levels in and int32 residuals out, the work table and the
 matrices, and the hi/lo split's two int8 products at the int8
 tensor-core peak; the int32-level, float32-peak bound of the first port
-is printed beside it.
+is printed beside it.  In the itx_batch entry, launches counts phase
+12's itx_batch_cuda launches (the comparisons of phases 3 and 4 are not
+counted), max_abs_err covers phases 3 and 12, and ms, plain_ms,
+call_ms and bound_ms (int32 levels in) are per frame of phase 12's
+headline picture, summed over the frame's group launches.
 Needs a CUDA device; imports neither JAX nor the JAX package.
 """
 
@@ -1334,6 +1351,259 @@ def phase_multidevice(errs: list) -> dict:
     return dict(out, launches=launches)
 
 
+# phase 12: the streams (name in streams.STREAMS or a builder here) and
+# how many of their first pictures go through the whole-frame stages;
+# the three streams earlier phases decode give one picture each, to keep
+# the whole run near its time
+FRAME_STAGE_STREAMS = (("headline", 1), ("tool-rich", 1), ("SAO/ALF", 1),
+                       ("vb", 2), ("tiles-ALF", 2))
+
+
+def _stage_streams() -> dict:
+    from vvdec_tpu_torch.streams import (TILES_ALF_STREAM_KW, VB_STREAM_KW,
+                                         tiles_alf_stream, vb_stream)
+    return {"vb": lambda: vb_stream(**VB_STREAM_KW),
+            "tiles-ALF": lambda: tiles_alf_stream(**TILES_ALF_STREAM_KW)}
+
+
+def frame_stage_pictures(name: str, n: int) -> list:
+    """The first n parsed pictures of a phase-12 stream."""
+    from vvdec_tpu_torch.decoder import parse_annexb
+    from vvdec_tpu_torch.parallel.dryrun import first_pictures
+    extra = _stage_streams()
+    if name in extra:
+        stream = BUILT.get(name) or BUILT.setdefault(name, extra[name]())
+        pics = parse_annexb(stream)[:n]
+    else:
+        pics = parse_annexb(first_pictures(built(name), n))
+    fail_unless(len(pics) == n, f"{name}: {len(pics)} pictures, not {n}")
+    return [p.cs for p in pics]
+
+
+def _host_golden(cs) -> list:
+    """The vendored host decoder's reconstruction and filters."""
+    from vvdec_tpu_torch.frame.alf_np import alf_frame_vec
+    from vvdec_tpu_torch.frame.deblock_np import deblock_frame
+    from vvdec_tpu_torch.frame.recon_np import IntraReconstructor
+    from vvdec_tpu_torch.frame.sao_np import sao_frame
+    planes = IntraReconstructor(cs).run()
+    deblock_frame(cs, planes)
+    sao_frame(cs, planes)
+    return alf_frame_vec(cs, planes)
+
+
+class StageClock:
+    """Per stage: host wall ms and the stream's ms between two CUDA
+    events around the call (each stage ends in a readback, so the two
+    agree but for the host's own work before the first launch)."""
+
+    def __init__(self):
+        self.ms: dict = {}
+
+    def wrap(self, name, fn):
+        import torch
+
+        def run(*a, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+            ev[0].record()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            wall = (time.perf_counter() - t0) * 1e3
+            ev[1].record()
+            ev[1].synchronize()
+            self.ms[name] = (wall, ev[0].elapsed_time(ev[1]))
+            return out
+        return run
+
+
+def phase_frame_stages(errs: list) -> dict:
+    """12. The whole-frame stages of vvdec_tpu_torch/ops/pipeline.py on
+    the card: per picture reconstruct_frame_torch (itx_frame_torch, the
+    host prediction, deblock_frame_torch), sao_frame_torch and
+    alf_frame_torch, each picture bit-equal to the vendored host golden
+    on the same parsed picture; every plain 2-D TU group without a
+    scaling list one itx_batch_cuda launch, held to itx_batch_ref."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    import vvdec_tpu_torch.frame.recon_np as recon_np
+    import vvdec_tpu_torch.ops.pipeline as P
+    from vvdec_tpu_torch.ops.cuda.itx import itx_batch_cuda, itx_batch_ref
+    from vvdec_tpu_torch.ops.device_pipeline import \
+        device_filter_reject_reason
+    dev = torch.device("cuda")
+    saved = {k: getattr(P, k) for k in (
+        "itx_batch_cuda", "_itx_fn", "_itx_lfnst_fn", "itx_frame_torch",
+        "deblock_frame_torch", "_deblock_luma_cells_core",
+        "_deblock_chroma_cells_core")}
+    saved_ts = recon_np.ts_residual
+    groups: list = []
+    routes: collections.Counter = collections.Counter()
+    cells: collections.Counter = collections.Counter()
+
+    def recorder(levels, scale, rshift, imax, mv, mh, *, h, w, bit_depth):
+        out = saved["itx_batch_cuda"](levels, scale, rshift, imax, mv, mh,
+                                      h=h, w=w, bit_depth=bit_depth)
+        # the inputs are views of the stage's upload, never written again
+        groups.append(dict(args=(levels, scale, rshift, imax, mv, mh), h=h,
+                           w=w, bit_depth=bit_depth, out=out))
+        return out
+
+    def itx_factory(h, w, hor, ver, bd, dq, use_sl=False):
+        routes["scaling list" if use_sl else "1-D" if min(h, w) == 1
+               else "kernel"] += 1
+        return saved["_itx_fn"](h, w, hor, ver, bd, dq, use_sl=use_sl)
+
+    def lfnst_factory(*a, **k):
+        routes["lfnst"] += 1
+        return saved["_itx_lfnst_fn"](*a, **k)
+
+    def ts_residual(*a):
+        routes["transform skip (host)"] += 1
+        return saved_ts(*a)
+
+    def cell_factory(kind, factory):
+        def make(*a):
+            fn = factory(*a)
+
+            def run(plane, c, prm, n_valid):
+                cells[(kind, a[2])] += n_valid
+                return fn(plane, c, prm, n_valid)
+            return run
+        return make
+
+    out: dict = {}
+    stage_names = ("itx", "host recon", "deblock", "sao", "alf")
+    print(f"[stages] per picture: ms of each stage, host wall / CUDA "
+          f"events; 'host recon' is reconstruct_frame_torch less its ITX "
+          f"and deblocking; ITX groups by route and itx_batch_cuda "
+          f"launches; deblocking cells (luma, chroma) per direction")
+    headline_groups: list = []
+    try:
+        for name, n in FRAME_STAGE_STREAMS:
+            t0 = time.perf_counter()
+            css = frame_stage_pictures(name, n)
+            reasons = {device_filter_reject_reason(cs) for cs in css}
+            print(f"[stages] {name}: {n} pictures parsed in "
+                  f"{time.perf_counter() - t0:.2f} s; the device filter "
+                  f"chain's verdict: {sorted(map(str, reasons))}")
+            if name in ("vb", "tiles-ALF"):
+                fail_unless(None not in reasons, f"{name}: the device filter "
+                            f"chain accepts it")
+            per_pic = []
+            for i, cs in enumerate(css):
+                t_gold = time.perf_counter()
+                want = _host_golden(cs)
+                t_gold = time.perf_counter() - t_gold
+                clock = StageClock()
+                groups.clear()
+                routes.clear()
+                cells.clear()
+                P.itx_batch_cuda = recorder
+                P._itx_fn = itx_factory
+                P._itx_lfnst_fn = lfnst_factory
+                recon_np.ts_residual = ts_residual
+                P.itx_frame_torch = clock.wrap("itx", saved["itx_frame_torch"])
+                P.deblock_frame_torch = clock.wrap(
+                    "deblock", saved["deblock_frame_torch"])
+                P._deblock_luma_cells_core = cell_factory(
+                    "luma", saved["_deblock_luma_cells_core"])
+                P._deblock_chroma_cells_core = cell_factory(
+                    "chroma", saved["_deblock_chroma_cells_core"])
+                itx_batch_cuda.launches = 0
+                try:
+                    t_run = time.perf_counter()
+                    planes = clock.wrap("recon", P.reconstruct_frame_torch)(
+                        cs, dev)
+                    clock.wrap("sao", P.sao_frame_torch)(cs, planes, dev)
+                    got = clock.wrap("alf", P.alf_frame_torch)(cs, planes,
+                                                               dev)
+                    t_run = time.perf_counter() - t_run
+                finally:
+                    for k, v in saved.items():
+                        setattr(P, k, v)
+                    recon_np.ts_residual = saved_ts
+                launches = itx_batch_cuda.launches
+                for c, (a, b) in enumerate(zip(got, want)):
+                    fail_unless(a.shape == b.shape and np.array_equal(a, b),
+                                f"{name} picture {i} plane {c}: the stages "
+                                f"differ from the host golden")
+                fail_unless(launches == routes["kernel"] == len(groups),
+                            f"{name} picture {i}: {launches} itx_batch_cuda "
+                            f"launches for {routes['kernel']} plain groups "
+                            f"({len(groups)} recorded)")
+                for g in groups:
+                    ref = itx_batch_ref(*g["args"], h=g["h"], w=g["w"],
+                                        bit_depth=g["bit_depth"])
+                    err = int((g["out"] - ref).abs().max()) \
+                        if ref.numel() else 0
+                    errs.append(err)
+                    fail_unless(err == 0, f"{name} picture {i}: itx "
+                                f"{g['h']}x{g['w']} group of "
+                                f"{ref.shape[0]} TUs: max |err| {err}")
+                if name == "headline":
+                    headline_groups.append(list(groups))
+                ms = dict(clock.ms)
+                ms["host recon"] = tuple(r - a - b for r, a, b in zip(
+                    ms.pop("recon"), ms["itx"], ms["deblock"]))
+                line = "; ".join(f"{k} {ms[k][0]:.1f}/{ms[k][1]:.1f}"
+                                 for k in stage_names)
+                cell_line = ", ".join(
+                    f"dir {d}: {cells[('luma', d)]} + {cells[('chroma', d)]}"
+                    for d in (0, 1))
+                print(f"[stages] {name} #{i}: {line} ms (all {t_run * 1e3:.0f}"
+                      f" ms; host golden {t_gold * 1e3:.0f} ms); groups "
+                      f"{dict(routes)}, {launches} itx_batch_cuda launches; "
+                      f"cells {cell_line}; bit-equal")
+                per_pic.append(dict(
+                    ms={k: ms[k] for k in stage_names}, all_ms=t_run * 1e3,
+                    golden_ms=t_gold * 1e3, routes=dict(routes),
+                    launches=launches,
+                    cells={f"{k}/{d}": v for (k, d), v in cells.items()}))
+            out[name] = per_pic
+    finally:
+        for k, v in saved.items():
+            setattr(P, k, v)
+        recon_np.ts_residual = saved_ts
+    launches = sum(p["launches"] for pics in out.values() for p in pics)
+    fail_unless(launches > 0, "phase 12 launched itx_batch_cuda no time")
+    out["launches"] = launches
+    out.update(batch_times(headline_groups))
+    return out
+
+
+def batch_times(frames: list) -> dict:
+    """Per frame (the groups one picture's itx_frame_torch launched):
+    the kernel's and the plain version's device time (torch.profiler),
+    the wrapper calls' stream time (CUDA events) and the bound, with the
+    wrapper's int32 levels."""
+    from vvdec_tpu_torch.ops.cuda.itx import itx_batch_cuda, itx_batch_ref
+    n_frames = len(frames)
+    groups = [g for f in frames for g in f]
+
+    def run(fn):
+        for g in groups:
+            fn(*g["args"], h=g["h"], w=g["w"], bit_depth=g["bit_depth"])
+
+    k_ms = device_ms(lambda: run(itx_batch_cuda), 10, "itx_kernel",
+                     launches=len(groups)) / n_frames
+    p_ms = device_ms(lambda: run(itx_batch_ref), 3) / n_frames
+    c_ms = cuda_ms(lambda: run(itx_batch_cuda), 10) / n_frames
+    work = [sum(v) for v in zip(*(itx_work(g["args"][0].shape[0], g["h"],
+                                           g["w"], level_bytes=4)
+                                  for g in groups))]
+    b_ms, by = bound_ms(work[0] / n_frames, work[1] / n_frames)
+    print(f"[stages] itx_batch per headline frame (mean of {n_frames}): "
+          f"{len(groups) / n_frames:.1f} launches; device time kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms;"
+          f" bound {b_ms:.6f} ms ({by}); stream time of the wrapper calls "
+          f"{c_ms:.4f} ms (each call waits for its int8 check)")
+    return dict(batch_ms=k_ms, batch_plain_ms=p_ms, batch_call_ms=c_ms,
+                batch_bound_ms=b_ms, batch_bound_by=by,
+                batch_launches_per_frame=len(groups) / n_frames)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the details as JSON here")
@@ -1365,7 +1635,10 @@ def main(argv=None) -> int:
         card = timed("card", phase_card)
         timed("build", phase_build)
         errs: list = []
-        timed("kernel", phase_kernel_vs_plain, errs)
+        # the one-group comparisons of phase 3 count for both entries
+        errs_kernel: list = []
+        timed("kernel", phase_kernel_vs_plain, errs_kernel)
+        errs += errs_kernel
         main_path = timed("main", phase_main_path, errs)
         tool_set = timed("tool set", phase_tool_set, errs)
         inter = timed("inter", phase_inter, errs)
@@ -1379,6 +1652,9 @@ def main(argv=None) -> int:
                        cli=timed("public surface: cli", phase_cli),
                        pool=timed("public surface: pool", phase_pool))
         multi = timed("multi-device", phase_multidevice, errs)
+        batch_errs = list(errs_kernel)
+        stages = timed("frame stages", phase_frame_stages, batch_errs)
+        errs += batch_errs
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1394,13 +1670,20 @@ def main(argv=None) -> int:
         ms=main_path["itx_ms"], plain_ms=main_path["itx_plain_ms"],
         bound_ms=main_path["itx_bound_ms"],
         bound_by=main_path["itx_bound_by"], library_ms=None,
-        call_ms=main_path["itx_call_ms"])]
+        call_ms=main_path["itx_call_ms"]), dict(
+        name="itx_batch", route="cuda", source="vvdec_tpu_torch/csrc/itx.cu",
+        replaces="vvdec_tpu/ops/pallas/itx.py:96",
+        launches=stages["launches"], max_abs_err=max(batch_errs),
+        ms=stages["batch_ms"], plain_ms=stages["batch_plain_ms"],
+        bound_ms=stages["batch_bound_ms"],
+        bound_by=stages["batch_bound_by"], library_ms=None,
+        call_ms=stages["batch_call_ms"])]
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kernels=kernels, main_path=main_path,
                            tool_set=tool_set, inter=inter, ra=ra,
                            host_recon=host, public_surface=surface,
-                           multi_device=multi), f,
+                           multi_device=multi, frame_stages=stages), f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -220,7 +220,7 @@ def test_itx_fn_matches_jax(h, w, dep_quant, use_sl):
             jnp.asarray(levels), jnp.asarray(qp),
             *(jnp.asarray(a) for a in extra))
         if use_sl:
-            got = to_numpy(port_fn(h, w, hor, ver, BD, dep_quant)(
+            got = to_numpy(port_fn(h, w, hor, ver, BD, dep_quant, True)(
                 *to_torch((levels, qp, smat), "cpu")))
         else:
             got = _frame_path(levels, qp, h, w, hor, ver, dep_quant)

@@ -535,6 +535,12 @@ class StreamDecoder:
         self._refs_host: dict[int, object] = {}
         self._ref_cols: dict[int, object] = {}  # poc -> ColMotion
         self._ref_pps: dict[int, object] = {}   # poc -> PPS (RPR scaling)
+        # under err_policy="conceal": poc -> (host planes or in-flight
+        # frame, ColMotion) of each picture that reference marking dropped
+        # since the last IDR.  Only concealment reads them, so that a lost
+        # reference takes the closest decoded picture that vvdec_tpu picks
+        # (it keeps every picture until the next IDR); uploaded on use
+        self._unused_refs: dict[int, tuple] = {}
         self._pending: ParsedFrame | None = None
         self._num_reorder = 0
         # random-access tune-in state
@@ -740,9 +746,11 @@ class StreamDecoder:
                  for e in rpl.entries}
         for poc in [p for p in self._refs_dev if p not in named]:
             del self._refs_dev[poc]
-            self._refs_host.pop(poc, None)
-            self._ref_cols.pop(poc, None)
+            host = self._refs_host.pop(poc, None)
+            cols = self._ref_cols.pop(poc, None)
             self._ref_pps.pop(poc, None)
+            if self.err_policy == "conceal":
+                self._unused_refs[poc] = (host, cols)
 
     def _build_ref_set(self, f, cs, sh_ref):
         """Resolve one slice's RPLs: (ref_pocs, ref_planes, ref_cols,
@@ -787,20 +795,33 @@ class StreamDecoder:
         return (ref_pocs, ref_planes, ref_cols, ref_scaled,
                 check_ldc), pic_error
 
-    def _substitute_ref(self, poc: int, cs) -> None:
-        """Lost reference: the closest decoded picture, or a grey frame
-        (DecLibParser::prepareUnavailablePicture + findClosestPic), stored
-        under `poc` in the device DPB, its host planes and its motion."""
+    def _substitute_ref(self, poc: int, cs) -> int | None:
+        """Lost reference: the closest picture decoded since the last IDR
+        (DecLibParser::prepareUnavailablePicture + findClosestPic), still
+        a reference or already marked unused, or a grey frame, stored
+        under `poc` in the device DPB, its host planes and its motion.
+        Returns the POC picked, None for grey."""
         self.error_pictures += 1
-        if self._refs_dev:
-            best = min(self._refs_dev, key=lambda p: (abs(p - poc), p))
-            self._refs_dev[poc] = self._refs_dev[best]
-            self._refs_host[poc] = self._refs_host[best]
-            self._ref_cols[poc] = self._ref_cols[best]
-            return
+        candidates = set(self._refs_dev) | set(self._unused_refs)
+        if candidates:
+            best = min(candidates, key=lambda p: (abs(p - poc), p))
+            if best in self._refs_dev:
+                self._refs_dev[poc] = self._refs_dev[best]
+                self._refs_host[poc] = self._refs_host[best]
+                self._ref_cols[poc] = self._ref_cols[best]
+                return best
+            host, cols = self._unused_refs[best]
+            if isinstance(host, _DeferredFrame):
+                host = host.resolve_int32()
+            self._refs_dev[poc] = tuple(
+                torch.tensor(p, device=self.device) for p in host)
+            self._refs_host[poc] = host
+            self._ref_cols[poc] = cols
+            return best
         from vvdec_tpu_torch.frame.inter_np import ColMotion
         self._store_grey(poc, cs)
         self._ref_cols[poc] = ColMotion(cs, poc)
+        return None
 
     def _resolve_ref_sets(self, f, cs) -> bool:
         """Per-slice reference sets (the reference constructs RPLs per
@@ -881,6 +902,7 @@ class StreamDecoder:
             self._refs_host.clear()
             self._ref_cols.clear()
             self._ref_pps.clear()
+            self._unused_refs.clear()
         self._num_reorder = cs.sps.num_reorder_pics[-1]
         pic_error = self._resolve_ref_sets(f, cs)
         self._mark_unused(f, cs)

@@ -657,6 +657,12 @@ def _alf_inputs(cs, bd: int):
                         cc_ctu[k, addr] = cc_bank_ids[ckey]
     if not (any_luma or any_chroma or any_cc):
         return None
+    if not banks_co:
+        # chroma ALF or CC-ALF without a luma ALF CTU: one zero bank that
+        # no CTU selects keeps the stacked [B, 4, 25, 13] shape (the
+        # reference reshapes the empty list and raises)
+        banks_co.append(np.zeros((4, 25, 13), dtype=np.int32))
+        banks_cl.append(np.zeros((4, 25, 13), dtype=np.int32))
     return {
         "any": (any_luma, any_chroma and cs.num_comp > 1,
                 any_cc and cs.num_comp > 1),

@@ -266,7 +266,7 @@ def itx_residual_device(cs, device=None) -> list:
                                    use_sl=lt is not None)
                 args = (levels, qps, up(kern), up(trans))
             else:
-                fn = _itx_fn(h, w, hor, ver, bd, dep_quant)
+                fn = _itx_fn(h, w, hor, ver, bd, dep_quant, use_sl=True)
                 args = (levels, qps)
             out = fn(*args, up(items[0][3])) if lt is not None \
                 else fn(*args)

@@ -42,6 +42,18 @@ bytes and the pins against the JAX package.
   filter chain (LMCS_INTER_CENSUS); they read the IDR back from the
   device and enter the device DPB.
 
+- vb (phase 12): tests/test_virtual_boundaries.py's _vb_stream at
+  832x480 (its CTU 32 and QP 30): intra, SAO, ALF (two APSs) and
+  CC-ALF, one vertical and one horizontal virtual boundary (x = 416,
+  y = 256), 2 pictures.  The device filter chain rejects virtual
+  boundaries.
+- tiles-ALF (phase 12): tests/test_alf.py's
+  TestAlfAcrossBoundaries._stream at 832x480, CTU 64: a 2x2 tile grid
+  (7 + 6 CTU columns, 4 + 4 CTU rows), one rectangular slice per tile,
+  loop filtering across tiles and slices off, ALF and CC-ALF, 2 intra
+  pictures.  The device filter chain rejects it (the ALF clamp windows
+  and the per-slice deblocking offsets).
+
 The concealment cases (CONCEAL_CASES) are the inter-LD stream with one
 fault each, for err_policy="conceal": "conceal-lost" drops the NAL of
 the P picture POC 5, so POC 6 substitutes the closest decoded picture
@@ -118,6 +130,21 @@ LMCS_INTER_CENSUS = {"device_recon:lmcs_inter": 2, "inter_c:lmcs": 2,
 
 # the headline stream's first frame alone (its 1-frame stream)
 HEADLINE_FIRST_MD5 = "836c38dbff68403b7f4001a24b57a573"
+
+VB_STREAM_KW = dict(seed=3, n_frames=2, wh=(832, 480), vbx=(416,),
+                    vby=(256,))
+TILES_ALF_STREAM_KW = dict(seed=1, n_frames=2, wh=(832, 480), ctu=64,
+                           pps_kw=dict(
+                               no_pic_partition=False, num_exp_tile_cols=2,
+                               num_exp_tile_rows=2, tile_col_widths=[7, 6],
+                               tile_row_heights=[4, 4], rect_slice=True,
+                               single_slice_per_subpic=False,
+                               num_slices_in_pic=4,
+                               slice_top_left_tile_idx=[0, 1, 2, 3],
+                               slice_width_in_tiles=[1, 1, 1, 1],
+                               slice_height_in_tiles=[1, 1, 1, 1],
+                               loop_filter_across_tiles=False,
+                               loop_filter_across_slices=False))
 
 # name -> (fault, POC of the faulty picture, pictures output, the POCs
 # output with DecodedPicture.error set, StreamDecoder.error_pictures,
@@ -323,6 +350,77 @@ def ra_stream(w: int, h: int, seed: int, sps_kw: dict, dec_kw: dict
         st += nal
     return st
 
+
+
+def vb_stream(seed: int, n_frames: int = 2, wh: tuple = (96, 64),
+              vbx: tuple = (48,), vby: tuple = (32,)) -> bytes:
+    """tests/test_virtual_boundaries.py's _vb_stream(seed, n_frames,
+    alf=True, wh=wh, vbx=vbx, vby=vby): intra pictures with virtual
+    boundaries at the positions vbx / vby, SAO, ALF (two APSs) and
+    CC-ALF."""
+    from vvdec_tpu_torch.testenc import encoder as E
+    from vvdec_tpu_torch.testenc.encoder import RandomDecisions, make_alf_aps
+    sps = E.make_sps(wh[0], wh[1], sao_enabled=True, alf_enabled=True,
+                     ccalf_enabled=True,
+                     virtual_boundaries_enabled=True,
+                     virtual_boundaries_present=True,
+                     virtual_boundary_pos_x=list(vbx),
+                     virtual_boundary_pos_y=list(vby))
+    pps = E.make_pps(sps)
+    st = _headers(sps, pps)
+    apss = {}
+    for i in range(2):
+        aps, nal = make_alf_aps(seed * 10 + i, aps_id=i, cc=True)
+        apss[i] = aps
+        st += nal
+    sh_kw = dict(sao_enabled_luma=True, sao_enabled_chroma=True,
+                 alf_enabled=[True, True, True], num_alf_aps_ids_luma=2,
+                 alf_aps_ids_luma=[0, 1], alf_aps_id_chroma=0)
+    if apss[0].cc_alf.new_filter[0]:
+        sh_kw.update(ccalf_cb_enabled=True, ccalf_cb_aps_id=0)
+    for f in range(n_frames):
+        dec = RandomDecisions(seed=seed * 100 + f, split_prob=0.4,
+                              density=0.15, inter_prob=0.0, mv_range=32)
+        nal, _ = E.encode_frame(sps, pps, dec, qp=30, poc=f, idr=True,
+                                sh_kw=sh_kw, alf_apss=apss)
+        st += nal
+    return st
+
+
+def tiles_alf_stream(seed: int, pps_kw: dict, n_frames: int = 2,
+                     wh: tuple = (96, 64), ctu: int = 32) -> bytes:
+    """tests/test_alf.py's TestAlfAcrossBoundaries._stream with several
+    slices: intra pictures with ALF (two APSs) and CC-ALF under the PPS
+    partitioning `pps_kw` (num_slices_in_pic > 1 rectangular slices),
+    each slice with decisions of its own."""
+    from vvdec_tpu_torch.testenc import encoder as E
+    from vvdec_tpu_torch.testenc.encoder import (RandomDecisions,
+                                                 encode_picture, make_alf_aps)
+    sps = E.make_sps(wh[0], wh[1], ctu=ctu, alf_enabled=True,
+                     ccalf_enabled=True, entry_point_offsets_present=True)
+    sps.ptl.level_idc = 83
+    pps = E.make_pps(sps, **pps_kw)
+    st = _headers(sps, pps)
+    apss = {}
+    for i in range(2):
+        aps, nal = make_alf_aps(seed * 10 + i, aps_id=i, cc=True)
+        apss[i] = aps
+        st += nal
+    sh_kw = dict(alf_enabled=[True, True, True], num_alf_aps_ids_luma=2,
+                 alf_aps_ids_luma=[0, 1], alf_aps_id_chroma=0)
+    if apss[0].cc_alf.new_filter[0]:
+        sh_kw.update(ccalf_cb_enabled=True, ccalf_cb_aps_id=0)
+    if apss[1].cc_alf.new_filter[1]:
+        sh_kw.update(ccalf_cr_enabled=True, ccalf_cr_aps_id=1)
+    for f in range(n_frames):
+        slices = [dict(decisions=RandomDecisions(
+                           seed=seed * 100 + f * 10 + i, split_prob=0.4),
+                       slice_type=2, sh_kw=dict(sh_kw))
+                  for i in range(pps_kw["num_slices_in_pic"])]
+        nal, _ = encode_picture(sps, pps, poc=f, idr=True, slices=slices,
+                                alf_apss=apss)
+        st += nal
+    return st
 
 # name -> (builder, frames, pinned MD5), in chip_smoke.py's order
 STREAMS = {
