@@ -21,15 +21,13 @@ result line:
    every frame's inputs as the main path gave them, the per-shape table
    is redone from one-group launches of those frames' TUs, and the stage
    split of a profiled decode is printed;
-5. the full intra tool set: the tool-rich intra stream (MIP, CCLM,
-   LFNST, explicit MTS; 4 frames), the SAO/ALF stream (SAO, ALF and
-   CC-ALF on; 4 frames) and the intra LMCS stream (chroma residual
-   scaling; 2 frames), all 832x480 and made by the port's own test
-   encoder (vvdec_tpu_torch/streams.py): per stream a warm-up decode
-   that records the ITX kernel's inputs, a timed decode (one ITX launch
-   per frame, the MD5 the CPU tests pin to the reference decoder) and a
-   profiled decode with its stage split; the kernel is held to its plain
-   version on every recorded frame and timed on the tool-rich stream's;
+5. intra LMCS: the intra LMCS stream (chroma residual scaling; 2
+   frames, 832x480, made by the port's own test encoder,
+   vvdec_tpu_torch/streams.py): a warm-up decode that records the ITX
+   kernel's inputs, a timed decode (one ITX launch per frame, the MD5
+   the CPU tests pin to the reference decoder) and a profiled decode
+   with its stage split; the kernel is held to its plain version on
+   every recorded frame;
 6. inter pictures: the inter-LD stream (bench.py "inter-LD 832x480": an
    IDR and 11 low-delay P pictures) and the inter-LDB tools stream (an
    IDR and 5 low-delay B pictures with affine + PROF, SbTMVP, MMVD, GPM,
@@ -52,7 +50,7 @@ result line:
    the second picture, a P picture, of the inter-LD stream, from
    torch.profiler;
 10. the public surface: (a) api.Decoder on CUDA fed access unit by
-   access unit, the headline stream with threads 0, 2, 0, 2 and the
+   access unit, the headline stream with threads 0, 2 and the
    inter-LD stream with threads 3, each with its pinned MD5, an empty
    census and one ITX launch per frame, printing frames/s and the
    first-frame delay (from a new decoder's first decode() to the first
@@ -94,16 +92,37 @@ result line:
    parsed picture; every plain 2-D TU group without a scaling list is one
    itx_batch_cuda launch, held to itx_batch_ref.  Per picture and stage
    it prints host wall and CUDA-event ms, the ITX groups by route and
-   the deblocking cells per direction.
+   the deblocking cells per direction;
+13. bench configurations: every configuration of bench.py that the
+   earlier phases leave out, made by three spawned background processes
+   while phase 3 runs (phase 4 waits for them): dense q27 (8 frames)
+   and max-density q22 (6 frames; QP 22, the heaviest residual load of
+   the test encoder) at 832x480, all 8 frames of tool-rich and SAO/ALF
+   (whose first 4 frames must also give the 4-frame streams' pins,
+   TOOL_RICH_MD5 and SAO_ALF_MD5; phases 11 and 12 take those 4-frame
+   streams from them), SAO/ALF 1920x1080 (4 frames) and inter-LD
+   1920x1080 (an IDR and 5 P pictures).  Per stream its size and build
+   time, then one decode: a StreamDecoder with the stage profiler on,
+   which records the ITX kernel's inputs in host memory and must give
+   the pinned MD5, an empty fallback census and one itx_frame_cuda
+   launch per frame; it prints
+   the stage split, intra steps a frame, frames/s and the card's peak
+   allocated memory.  The kernel is held to its plain version on every
+   recorded frame; on the max-density and 1080p frames it prints per
+   frame the kernel's device ms (torch.profiler, as for the headline,
+   over a trace of 300 launches of the frame: short traces lose most of
+   their events), the wrapper calls' ms, the bound and the TU count.
 
 Every timed decode also checks the decoder's fallback census: empty on
 every stream but inter-LMCS and the concealment cases' grey pictures.
+The background builders are shut down before the script exits, also
+when a phase fails.
 
 Each phase prints its wall time.  The last three lines of standard
 output are the kernels' JSON summary, the card's name and power limit,
 and {"ok": true, "device": ...}.  The summary has two entries for the
 one kernel, one per entry point.  In the itx_frame entry, launches counts the
-ITX launches of the timed decodes of all eight streams and of phase 10's
+ITX launches of the timed decodes of phases 4-8 and 13 and of phase 10's
 and 11's in-process decodes (not those of the CLI's, the pool's or the
 ranks' processes),
 and max_abs_err covers every comparison of the kernel with its plain
@@ -126,6 +145,7 @@ Needs a CUDA device; imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -368,48 +388,69 @@ def yuv_md5(frames) -> str:
 # the streams the phases built, by name of vvdec_tpu_torch.streams.STREAMS,
 # for the later phases that decode them again
 BUILT: dict = {}
+# phase 13's streams as the background builders make them, by name: a
+# future of build_stream(name) (start_bench_builds)
+BACKGROUND: dict = {}
 
 
 def built(name: str) -> bytes:
-    """The stream `name` of streams.STREAMS, built once per run."""
-    from vvdec_tpu_torch.streams import STREAMS
+    """The stream `name` of streams.STREAMS, built once per run; a stream
+    of streams.PREFIXES is the first pictures of its longer stream from
+    the background builders."""
+    from vvdec_tpu_torch.parallel.dryrun import first_pictures
+    from vvdec_tpu_torch.streams import PREFIXES, STREAMS
     if name not in BUILT:
-        BUILT[name] = STREAMS[name][0]()
+        if name in BACKGROUND:
+            BUILT[name] = BACKGROUND[name].result()[0]
+        elif PREFIXES.get(name) in BACKGROUND:
+            BUILT[name] = first_pictures(built(PREFIXES[name]),
+                                         STREAMS[name][1])
+        else:
+            BUILT[name] = STREAMS[name][0]()
     return BUILT[name]
 
 
-def itx_recorder(recorded: list):
+def itx_recorder(recorded: list, host: bool = False):
     """A stand-in for frame_device.itx_frame_cuda that appends each
     call's inputs to `recorded` as the decode gives them (the residual
-    planes as they were before the call), then runs the wrapper."""
+    planes as they were before the call), then runs the wrapper.  With
+    `host`, the copies go to host memory (the copy waits for the
+    stream), so that they add nothing to the card's memory."""
     from vvdec_tpu_torch.ops.cuda.itx import itx_frame_cuda
+
+    def keep(t):
+        return t.cpu() if host else t.clone()
 
     def recorder(coef, resi, table, pool, *, n_tasks, bit_depth):
         recorded.append(dict(
-            coef=[None if c is None else c.clone() for c in coef],
-            resi=[r.clone() for r in resi], table=table.clone(),
+            coef=[None if c is None else keep(c) for c in coef],
+            resi=[keep(r) for r in resi], table=keep(table),
             n_tasks=n_tasks, bit_depth=bit_depth))
         return itx_frame_cuda(coef, resi, table, pool, n_tasks=n_tasks,
                               bit_depth=bit_depth)
     return recorder
 
 
-def recording_decode(stream: bytes, label: str, census=None,
-                     refined=None) -> list:
-    """One decode on CUDA that records every itx_frame_cuda call's
-    inputs as the decode gives them (the residual planes as they were
-    before the call); with `census`, it also counts the TUs of the
-    PyTorch residual paths; with `refined` (a list), it appends per
-    picture with DMVR or BDOF CUs (POC, DMVR CUs, DMVR subblocks, BDOF
-    CUs, BDOF regions).  Returns the recorded calls."""
-    import torch
+def on_card(rec: dict) -> dict:
+    """A recorded call (itx_recorder) with its tensors on the card."""
+    return dict(rec, coef=[None if c is None else c.cuda()
+                           for c in rec["coef"]],
+                resi=[r.cuda() for r in rec["resi"]],
+                table=rec["table"].cuda())
 
+
+@contextlib.contextmanager
+def itx_recording(recorded: list, host: bool = False, census=None,
+                  refined=None):
+    """While open, every itx_frame_cuda call's inputs are appended to
+    `recorded` (itx_recorder); with `census` (a dict), the TUs of the
+    PyTorch residual paths are counted in it; with `refined` (a list),
+    per picture with DMVR or BDOF CUs (POC, DMVR CUs, DMVR subblocks,
+    BDOF CUs, BDOF regions) is appended to it.  Everything is put back on
+    exit."""
     import vvdec_tpu_torch.ops.frame_device as frame_device
     import vvdec_tpu_torch.ops.pipeline as pipeline
-    from vvdec_tpu_torch.decoder import decode_annexb
     from vvdec_tpu_torch.ops.cuda.itx import itx_frame_cuda
-    recorded = []
-    recorder = itx_recorder(recorded)
 
     def counting(name, factory):
         def make(*args, **kw):
@@ -430,7 +471,7 @@ def recording_decode(stream: bytes, label: str, census=None,
                         sum(p.n for p in mf.dmvr_plans), len(mf.bdof),
                         sum(p.n for p in mf.bdof_plans)))
 
-    frame_device.itx_frame_cuda = recorder
+    frame_device.itx_frame_cuda = itx_recorder(recorded, host)
     if refined is not None:
         frame_device.McFrame.plan_refinement = counting_plan
     if census is not None:
@@ -438,51 +479,89 @@ def recording_decode(stream: bytes, label: str, census=None,
         pipeline._itx_lfnst_fn = counting("lfnst", saved[1])
         pipeline._itx_fn = counting("scaling list", saved[2])
     try:
-        t0 = time.perf_counter()
-        decode_annexb(stream)
-        torch.cuda.synchronize()
-        print(f"[{label}] warm-up decode {time.perf_counter() - t0:.2f} s")
+        yield recorded
     finally:
         frame_device.itx_frame_cuda = itx_frame_cuda
         frame_device.McFrame.plan_refinement = plan_refinement
         pipeline._ts_fn, pipeline._itx_lfnst_fn, pipeline._itx_fn = saved
+
+
+def recording_decode(stream: bytes, label: str, census=None,
+                     refined=None) -> list:
+    """One decode on CUDA inside itx_recording(census=, refined=).
+    Returns the recorded calls."""
+    import torch
+
+    from vvdec_tpu_torch.decoder import decode_annexb
+    recorded: list = []
+    with itx_recording(recorded, census=census, refined=refined):
+        t0 = time.perf_counter()
+        decode_annexb(stream)
+        torch.cuda.synchronize()
+        print(f"[{label}] warm-up decode {time.perf_counter() - t0:.2f} s")
     return recorded
 
 
 def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
-                 label: str, census=None, device_frames=None) -> dict:
+                 label: str, census=None, device_frames=None,
+                 size=(832, 480), recorded=None, prefix=None,
+                 profile=False) -> dict:
     """The path as a user drives it: a StreamDecoder on CUDA fed the
     whole stream, then flushed (what decode_annexb does), with the
     kernels' launch counts set to 0 just before and read just after.
-    Fails unless the YUV has its pinned MD5, the decoder's fallback
-    census equals `census` (default: empty, every picture on the device)
-    and the ITX kernel was launched once per device picture
-    (`device_frames`, default every frame)."""
+    Fails unless the YUV has its pinned MD5, the pictures are `size`
+    (width, height) 4:2:0, the decoder's fallback census equals `census`
+    (default: empty, every picture on the device) and the ITX kernel was
+    launched once per device picture (`device_frames`, default every
+    frame).  With `recorded` (a list) the decode also records each
+    itx_frame_cuda call's inputs there, in host memory (itx_recording);
+    with `prefix` (n, pin) the YUV of the first n frames must have the
+    MD5 `pin` (the pin of the stream's first n pictures alone: a picture
+    depends on none that follows); with `profile` the stage profiler is
+    on and the result holds the stage split (stage_split): the profiler
+    synchronises the device at the end of each device stage, so each
+    stage's time includes its device work."""
     import torch
 
     from vvdec_tpu_torch.decoder import StreamDecoder
     from vvdec_tpu_torch.ops.cuda.itx import itx_batch_cuda, itx_frame_cuda
+    from vvdec_tpu_torch.utils.trace import profiler
     census = census or {}
     device_frames = n_frames if device_frames is None else device_frames
-    itx_frame_cuda.launches = 0
-    itx_batch_cuda.launches = 0
-    t0 = time.perf_counter()
-    dec = StreamDecoder()
-    frames = [p.planes for p in dec.push(stream) + dec.flush()]
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = itx_frame_cuda.launches
-    batch_launches = itx_batch_cuda.launches
+    recording = (contextlib.nullcontext() if recorded is None
+                 else itx_recording(recorded, host=True))
+    profiler.reset()
+    profiler.enabled = profile
+    try:
+        with recording:
+            itx_frame_cuda.launches = 0
+            itx_batch_cuda.launches = 0
+            t0 = time.perf_counter()
+            dec = StreamDecoder()
+            frames = [p.planes for p in dec.push(stream) + dec.flush()]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = itx_frame_cuda.launches
+            batch_launches = itx_batch_cuda.launches
+    finally:
+        profiler.enabled = False
     md5 = yuv_md5(frames)
     got = dict(dec.fallback_census)
-    print(f"[{label}] StreamDecoder on cuda: {len(frames)} frames in "
-          f"{dt:.3f} s = {len(frames) / dt:.2f} frames/s; itx launches "
-          f"{launches} (itx_batch_cuda {batch_launches}); md5 {md5}; "
-          f"fallback census {got}")
+    print(f"[{label}] StreamDecoder on cuda{' (profiled)' if profile else ''}"
+          f": {len(frames)} frames in {dt:.3f} s = {len(frames) / dt:.2f} "
+          f"frames/s; itx launches {launches} (itx_batch_cuda "
+          f"{batch_launches}); md5 {md5}; fallback census {got}")
     fail_unless(len(frames) == n_frames, f"{label}: {len(frames)} frames "
                 f"decoded, expected {n_frames}")
-    fail_unless(all(f[0].shape == (480, 832) and f[1].shape == (240, 416)
+    w, h = size
+    fail_unless(all(f[0].shape == (h, w) and f[1].shape == (h // 2, w // 2)
                     for f in frames), f"{label}: unexpected plane shapes")
+    if prefix is not None:
+        n, pin = prefix
+        got_prefix = yuv_md5(frames[:n])
+        print(f"[{label}] its first {n} frames: md5 {got_prefix}")
+        fail_unless(got_prefix == pin, f"{label}: the first {n} frames' md5 "
+                    f"{got_prefix} != pinned {pin}")
     fail_unless(launches == device_frames, f"{label}: {launches} ITX kernel "
                 f"launches for {device_frames} pictures decoded on the "
                 f"device")
@@ -490,36 +569,28 @@ def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
                 f"{md5_pin}")
     fail_unless(got == census, f"{label}: fallback census {got} != "
                 f"{census}")
-    return dict(fps=len(frames) / dt, decode_s=dt, launches=launches,
-                md5=md5, census=got)
+    out = dict(fps=len(frames) / dt, decode_s=dt, launches=launches,
+               md5=md5, census=got)
+    if profile:
+        out["stages_ms_per_frame"] = stage_split(n_frames, dt, label)
+    return out
 
 
-def profiled_decode(stream: bytes, n_frames: int, md5_pin: str,
-                    label: str) -> dict:
-    """A decode with the stage profiler on, which synchronises the device
-    at the end of each device stage, so each stage's time includes its
-    device work.  Returns ms per frame by stage."""
-    import torch
-
-    from vvdec_tpu_torch.decoder import decode_annexb
+def stage_split(n_frames: int, seconds: float, label: str) -> dict:
+    """The profiler's totals of a decode of n_frames that took `seconds`,
+    printed and returned as ms per frame by stage, with the intra steps
+    by mode class, the filter and MC stages in all, the intra steps a
+    frame and the frames/s."""
     from vvdec_tpu_torch.utils.trace import profiler
-    profiler.reset()
-    profiler.enabled = True
-    try:
-        t0 = time.perf_counter()
-        frames = decode_annexb(stream)
-        torch.cuda.synchronize()
-        dt_prof = time.perf_counter() - t0
-    finally:
-        profiler.enabled = False
     stages = {k: v / n_frames * 1e3 for k, v in profiler.totals.items()
               if not k.startswith("intra step: ")}
+    fps = n_frames / seconds
     steps = {k[len("intra step: "):]: (v / n_frames * 1e3,
                                        profiler.counts[k] / n_frames)
              for k, v in profiler.totals.items()
              if k.startswith("intra step: ")}
-    print(f"[{label}] profiled decode {dt_prof:.3f} s; stage ms per frame "
-          f"(synchronised):")
+    print(f"[{label}] profiled decode {seconds:.3f} s = {fps:.2f} frames/s;"
+          f" stage ms per frame (synchronised):")
     for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"[{label}]   {k:<26} {v:9.3f} ms in {profiler.counts[k]} "
               f"calls")
@@ -534,8 +605,8 @@ def profiled_decode(stream: bytes, n_frames: int, md5_pin: str,
         stages[key] = sum(v for k, v in stages.items()
                           if isinstance(v, float) and k.startswith(prefix))
         print(f"[{label}]   {key:<26} {stages[key]:9.3f}")
-    fail_unless(yuv_md5(frames) == md5_pin,
-                f"{label}: profiled decode md5 differs")
+    stages["intra steps a frame"] = sum(n for _, n in steps.values())
+    stages["profiled frames/s"] = fps
     return stages
 
 
@@ -629,7 +700,8 @@ def phase_main_path(errs: list) -> dict:
           f"wrapper {times['itx_call_ms']:.4f} ms, plain "
           f"{times['itx_plain_call_ms']:.4f} ms")
     shapes = phase_shape_groups(recorded, rows, n_frames)
-    stages = profiled_decode(stream, n_frames, HEADLINE_MD5, "main")
+    stages = timed_decode(stream, n_frames, HEADLINE_MD5, "main",
+                          profile=True)["stages_ms_per_frame"]
     return dict(res, launches_per_frame=res["launches"] / n_frames,
                 census_per_frame=dict(
                     kernel=sum(map(len, rows)) / n_frames,
@@ -638,40 +710,27 @@ def phase_main_path(errs: list) -> dict:
                 **wavefront_schedule(stream, n_frames, stages, "main"))
 
 
-def phase_tool_set(errs: list) -> dict:
-    """The tool-rich, SAO/ALF and LMCS streams: each decoded as the
-    headline is, its ITX inputs held to the plain version; the ITX
-    kernel's per-frame times on the tool-rich stream's frames."""
+def phase_lmcs(errs: list) -> dict:
+    """The intra LMCS stream, decoded as the headline is, its ITX inputs
+    held to the plain version."""
     from vvdec_tpu_torch.streams import STREAMS
-    out = {}
-    for name in ("tool-rich", "SAO/ALF", "LMCS"):
-        builder, n_frames, md5_pin = STREAMS[name]
-        t0 = time.perf_counter()
-        stream = BUILT[name] = builder()
-        print(f"[{name}] stream 832x480 x {n_frames} frames, {len(stream)} "
-              f"bytes, made in {time.perf_counter() - t0:.1f} s")
-        recorded = recording_decode(stream, name)
-        fail_unless(len(recorded) == n_frames, f"{name}: the warm-up decode "
-                    f"made {len(recorded)} itx_frame_cuda calls for "
-                    f"{n_frames} frames")
-        res = timed_decode(stream, n_frames, md5_pin, name)
-        check_frames(recorded, errs, name)
-        if name == "tool-rich":
-            times = frame_times(recorded, n_frames)
-            rows = times.pop("rows")
-            tus = sum(map(len, rows)) / n_frames
-            res.update(times, kernel_tus_per_frame=tus)
-            print(f"[{name}] itx per frame: {tus:.1f} kernel TUs; device "
-                  f"time kernel {times['itx_ms']:.4f} ms, "
-                  f"plain {times['itx_plain_ms']:.4f} ms; bound "
-                  f"{times['itx_bound_ms']:.6f} ms ({times['itx_bound_by']}); "
-                  f"stream time of the calls: wrapper "
-                  f"{times['itx_call_ms']:.4f} ms")
-        stages = profiled_decode(stream, n_frames, md5_pin, name)
-        res.update(stages_ms_per_frame=stages,
-                   **wavefront_schedule(stream, n_frames, stages, name))
-        out[name] = res
-    return out
+    name = "LMCS"
+    builder, n_frames, md5_pin = STREAMS[name]
+    t0 = time.perf_counter()
+    stream = BUILT[name] = builder()
+    print(f"[{name}] stream 832x480 x {n_frames} frames, {len(stream)} "
+          f"bytes, made in {time.perf_counter() - t0:.1f} s")
+    recorded = recording_decode(stream, name)
+    fail_unless(len(recorded) == n_frames, f"{name}: the warm-up decode "
+                f"made {len(recorded)} itx_frame_cuda calls for {n_frames} "
+                f"frames")
+    res = timed_decode(stream, n_frames, md5_pin, name)
+    check_frames(recorded, errs, name)
+    stages = timed_decode(stream, n_frames, md5_pin, name,
+                          profile=True)["stages_ms_per_frame"]
+    res.update(stages_ms_per_frame=stages,
+               **wavefront_schedule(stream, n_frames, stages, name))
+    return res
 
 
 def phase_shape_groups(recorded, rows, n_frames) -> list:
@@ -790,7 +849,8 @@ def phase_ra(errs: list) -> dict:
               f"regions")
     fail_unless(any(r[1] for r in refined) and any(r[3] for r in refined),
                 f"{name}: no DMVR or no BDOF CU in the stream")
-    stages = profiled_decode(stream, n_frames, md5_pin, name)
+    stages = timed_decode(stream, n_frames, md5_pin, name,
+                          profile=True)["stages_ms_per_frame"]
     fail_unless(stages.get("mc: DMVR", 0) > 0 and stages.get("mc: BDOF", 0)
                 > 0, f"{name}: the stage split lacks mc: DMVR or mc: BDOF")
     res.update(stages_ms_per_frame=stages, refined_per_picture=refined,
@@ -818,7 +878,10 @@ def phase_host_recon(errs: list) -> dict:
     res = timed_decode(stream, n_frames, md5_pin, name,
                        census=LMCS_INTER_CENSUS, device_frames=device_frames)
     check_frames(recorded, errs, name)
-    stages = profiled_decode(stream, n_frames, md5_pin, name)
+    stages = timed_decode(stream, n_frames, md5_pin, name,
+                          census=LMCS_INTER_CENSUS,
+                          device_frames=device_frames,
+                          profile=True)["stages_ms_per_frame"]
     fail_unless(stages.get("recon", 0) > 0 and stages.get(
         "filter(submit)", 0) > 0, f"{name}: the stage split lacks the host "
                 f"reconstruction or the device filter submit")
@@ -907,7 +970,8 @@ def phase_inter(errs: list) -> dict:
                   f"{times['itx_bound_ms']:.6f} ms ({times['itx_bound_by']}); "
                   f"stream time of the calls: wrapper "
                   f"{times['itx_call_ms']:.4f} ms")
-        stages = profiled_decode(stream, n_frames, md5_pin, name)
+        stages = timed_decode(stream, n_frames, md5_pin, name,
+                              profile=True)["stages_ms_per_frame"]
         res.update(stages_ms_per_frame=stages,
                    **wavefront_schedule(stream, n_frames, stages, name))
         out[name] = res
@@ -1058,12 +1122,12 @@ def api_decode(stream: bytes, n_frames: int, md5_pin: str, label: str,
 
 
 def phase_api(errs: list) -> dict:
-    """(a) api.Decoder: the headline with threads 0, 2, 0, 2, then the
+    """(a) api.Decoder: the headline with threads 0, then 2, then the
     inter-LD stream with threads 3."""
     from vvdec_tpu_torch.streams import STREAMS
     runs = []
-    for name, threads in (("headline", 0), ("headline", 2), ("headline", 0),
-                          ("headline", 2), ("inter-LD", 3)):
+    for name, threads in (("headline", 0), ("headline", 2),
+                          ("inter-LD", 3)):
         _, n_frames, md5_pin = STREAMS[name]
         recorded: list = []
         res = api_decode(built(name), n_frames, md5_pin, f"api {name}",
@@ -1604,6 +1668,158 @@ def batch_times(frames: list) -> dict:
                 batch_launches_per_frame=len(groups) / n_frames)
 
 
+def build_stream(name: str) -> tuple:
+    """(the stream `name` of streams.STREAMS, seconds it took to make);
+    phase 13's streams are made by this in the background builders."""
+    from vvdec_tpu_torch.streams import STREAMS
+    t0 = time.perf_counter()
+    stream = STREAMS[name][0]()
+    return stream, time.perf_counter() - t0
+
+
+def start_bench_builds():
+    """Three spawned processes that make phase 13's streams (about 80 s
+    of the host's CPU in all) while phase 3 measures the kernel on the
+    card, the largest first.  Fills BACKGROUND; returns the executor."""
+    import concurrent.futures
+    import multiprocessing
+
+    from vvdec_tpu_torch.streams import BENCH_STREAMS, STREAMS, picture_size
+
+    def area(name):
+        w, h = picture_size(BENCH_STREAMS[name])
+        return w * h * STREAMS[name][1]
+    ex = concurrent.futures.ProcessPoolExecutor(
+        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
+    order = sorted(BENCH_STREAMS, key=area, reverse=True)
+    BACKGROUND.update((name, ex.submit(build_stream, name))
+                      for name in order)
+    return ex
+
+
+def wait_bench_builds() -> None:
+    """Wait for the background builds, so that no build competes with
+    the host work of the decodes that phases 4-13 time."""
+    for name, fut in BACKGROUND.items():
+        stream, seconds = fut.result()
+        print(f"[builds] {name}: {len(stream)} bytes in {seconds:.1f} s")
+
+
+# phase 13: the streams whose every frame's ITX launch is timed and
+# printed on its own; the launches of one frame that each of those
+# torch.profiler traces holds (short traces lose most of their events,
+# long ones nearly none: PERF.md §7)
+PER_FRAME_ITX = ("max-density q22", "SAO/ALF 1080p", "inter-LD 1080p")
+TRACE_LAUNCHES = 300
+
+
+def itx_per_frame(recorded, label: str, verbose: bool, reps: int = 11
+                  ) -> dict:
+    """The ITX kernel on the recorded frames (tensors on the card), timed
+    as the headline's frames are (frame_times): the kernel's device time
+    by torch.profiler (device_ms) over TRACE_LAUNCHES launches, the
+    wrapper calls' stream time (cuda_ms over reps back-to-back calls, the
+    host's cost between launches included), the bound (frame_work) and
+    the plain version's device time.  With `verbose`, per frame (each in
+    a trace of its own, printed) and their means; else only the means,
+    from one trace of every frame."""
+    from vvdec_tpu_torch.ops.cuda.itx import (itx_frame_cuda, itx_frame_ref,
+                                              table_rows)
+    resis = [[r.clone() for r in rec["resi"]] for rec in recorded]
+    n = len(recorded)
+    frames = []
+    for i, (rec, resi) in enumerate(zip(recorded, resis)):
+        def run(rec=rec, resi=resi):
+            run_frame(itx_frame_cuda, rec, resi)
+
+        rows = table_rows(rec["table"], rec["n_tasks"])
+        b_ms, by = bound_ms(*frame_work(rows)[:2])
+        f = dict(tus=len(rows), blocks=rec["n_tasks"], bound_ms=b_ms,
+                 bound_by=by)
+        if verbose:
+            f.update(ms=device_ms(run, TRACE_LAUNCHES, "itx_kernel",
+                                  launches=1),
+                     call_ms=cuda_ms(run, reps))
+            print(f"[{label}] itx frame {i}: {len(rows)} TUs in "
+                  f"{rec['n_tasks']} blocks; kernel {f['ms']:.4f} ms device"
+                  f", {f['call_ms']:.4f} ms call; bound {b_ms:.6f} ms ({by})")
+        frames.append(f)
+
+    def run_all(fn=itx_frame_cuda):
+        for rec, resi in zip(recorded, resis):
+            run_frame(fn, rec, resi)
+
+    mean = {k: sum(f[k] for f in frames) / n
+            for k in frames[0] if k not in ("blocks", "bound_by")}
+    if not verbose:
+        mean["ms"] = device_ms(run_all, -(-TRACE_LAUNCHES // n),
+                               "itx_kernel", launches=n) / n
+        mean["call_ms"] = cuda_ms(run_all, reps) / n
+    p_ms = device_ms(lambda: run_all(itx_frame_ref), 1) / n
+    print(f"[{label}] itx per frame (mean of {n}): {mean['tus']:.1f} kernel "
+          f"TUs; device time kernel {mean['ms']:.4f} ms, plain {p_ms:.4f} "
+          f"ms; bound {mean['bound_ms']:.6f} ms; stream time of the calls: "
+          f"wrapper {mean['call_ms']:.4f} ms")
+    return dict(frames=frames, kernel_tus_per_frame=mean["tus"],
+                itx_ms=mean["ms"], itx_plain_ms=p_ms,
+                itx_call_ms=mean["call_ms"], itx_bound_ms=mean["bound_ms"])
+
+
+def phase_bench_configs(errs: list) -> dict:
+    """13. The rest of bench.py's configurations: dense q27, max-density
+    q22, all eight frames of tool-rich and SAO/ALF, SAO/ALF 1920x1080 and
+    inter-LD 1920x1080, made by the background builders.  Per stream one
+    decode, through a StreamDecoder with the stage profiler on, that
+    records the ITX kernel's inputs in host memory: the pinned MD5 (and
+    the 4-frame pin on an 8-frame stream's first 4 frames), an empty
+    census, one itx_frame_cuda launch per frame, the stage split, the
+    intra steps a frame, frames/s and the card's peak allocated memory.
+    The kernel is held to its plain version on every recorded frame and
+    timed (itx_per_frame) per frame on the PER_FRAME_ITX streams and over
+    all the tool-rich frames."""
+    import torch
+
+    from vvdec_tpu_torch.streams import (BENCH_STREAMS, PREFIXES, STREAMS,
+                                         picture_size)
+    # an 8-frame stream's first pictures must give the pin of the shorter
+    # stream they are
+    prefix_pins = {long: STREAMS[short][1:] for short, long in
+                   PREFIXES.items()}
+    out = {}
+    for name, kw in BENCH_STREAMS.items():
+        _, n_frames, md5_pin = STREAMS[name]
+        w, h = picture_size(kw)
+        stream, build_s = BACKGROUND[name].result()
+        print(f"[{name}] stream {w}x{h} x {n_frames} frames, {len(stream)} "
+              f"bytes, made in {build_s:.1f} s in the background")
+        recorded: list = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = timed_decode(stream, n_frames, md5_pin, name, size=(w, h),
+                           recorded=recorded,
+                           prefix=prefix_pins.get(name), profile=True)
+        peak = torch.cuda.max_memory_allocated()
+        steps = res["stages_ms_per_frame"]["intra steps a frame"]
+        print(f"[{name}] {steps:.1f} intra steps a frame; card memory: peak "
+              f"allocated {peak / 2**20:.1f} MiB in the decode")
+        res.update(bytes=len(stream), build_s=build_s, peak_allocated=peak)
+        fail_unless(len(recorded) == n_frames, f"{name}: the decode made "
+                    f"{len(recorded)} itx_frame_cuda calls for {n_frames} "
+                    f"frames")
+        t0 = time.perf_counter()
+        recorded = [on_card(r) for r in recorded]
+        check_frames(recorded, errs, name)
+        if name in PER_FRAME_ITX or name == "tool-rich 8":
+            res.update(itx_per_frame(recorded, name,
+                                     verbose=name in PER_FRAME_ITX))
+        print(f"[{name}] the checks and times of the recorded frames took "
+              f"{time.perf_counter() - t0:.1f} s")
+        del recorded
+        torch.cuda.empty_cache()
+        out[name] = res
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the details as JSON here")
@@ -1631,16 +1847,19 @@ def main(argv=None) -> int:
               f"(run so far {time.perf_counter() - t_run:.1f} s)")
         return out
 
+    builder = None
     try:
         card = timed("card", phase_card)
         timed("build", phase_build)
+        builder = start_bench_builds()
         errs: list = []
         # the one-group comparisons of phase 3 count for both entries
         errs_kernel: list = []
         timed("kernel", phase_kernel_vs_plain, errs_kernel)
+        timed("stream builds", wait_bench_builds)
         errs += errs_kernel
         main_path = timed("main", phase_main_path, errs)
-        tool_set = timed("tool set", phase_tool_set, errs)
+        lmcs = timed("LMCS", phase_lmcs, errs)
         inter = timed("inter", phase_inter, errs)
         ra = timed("RA", phase_ra, errs)
         host = timed("host recon", phase_host_recon, errs)
@@ -1655,14 +1874,18 @@ def main(argv=None) -> int:
         batch_errs = list(errs_kernel)
         stages = timed("frame stages", phase_frame_stages, batch_errs)
         errs += batch_errs
+        bench = timed("bench configurations", phase_bench_configs, errs)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if builder is not None:
+            builder.shutdown(wait=True, cancel_futures=True)
     launches = main_path["launches"] + sum(
-        r["launches"] for r in (*tool_set.values(), inter["inter-LD"],
+        r["launches"] for r in (lmcs, inter["inter-LD"],
                                 inter["inter-LDB tools"], ra, host,
                                 surface["api"], surface["conceal"],
-                                multi))
+                                multi, *bench.values()))
     kernels = [dict(
         name="itx_frame", route="cuda", source="vvdec_tpu_torch/csrc/itx.cu",
         replaces="vvdec_tpu/ops/pallas/itx.py:96",
@@ -1681,9 +1904,10 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kernels=kernels, main_path=main_path,
-                           tool_set=tool_set, inter=inter, ra=ra,
+                           lmcs=lmcs, inter=inter, ra=ra,
                            host_recon=host, public_surface=surface,
-                           multi_device=multi, frame_stages=stages), f,
+                           multi_device=multi, frame_stages=stages,
+                           bench_configurations=bench), f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

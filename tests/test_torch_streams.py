@@ -133,4 +133,6 @@ def test_stream_parameters_match_bench():
     assert S.STREAMS["headline"][2] == S.HEADLINE_MD5
     # the RA and inter-LMCS streams: tests/test_torch_ra_stream.py and
     # tests/test_torch_fallback.py check their bytes and pins
-    assert list(S.STREAMS) == ["headline"] + NAMES + ["RA", "inter-LMCS"]
+    # and phase 13's streams (tests/test_torch_bench_configs*.py)
+    assert list(S.STREAMS) == ["headline"] + NAMES + [
+        "RA", "inter-LMCS"] + list(S.BENCH_STREAMS)

@@ -14,10 +14,11 @@ bytes and the pins against the JAX package.
   CTU 64, QP 32, deblocking on, no SAO or ALF.
 - tool-rich: bench.py "tool-rich intra (MIP/CCLM/LFNST/MTS) 832x480":
   the intra tools real encoders turn on, QP 30; its first 4 of 8
-  frames (cut so that chip_smoke.py stays within its time).
+  frames, which are the first 4 pictures of "tool-rich 8" byte for
+  byte.
 - SAO/ALF: bench.py "all-intra+SAO/ALF 832x480": the headline's
   decisions with SAO, ALF (two APSs, luma and chroma) and CC-ALF on;
-  its first 4 of 8 frames, cut likewise.
+  its first 4 of 8 frames, likewise the start of "SAO/ALF 8".
 - LMCS: the intra LMCS stream of tests/test_lmcs.py at 832x480, CTU 64,
   with chroma residual scaling, 2 frames.
 - inter-LD: bench.py "inter-LD 832x480": an IDR and 11 low-delay P
@@ -41,6 +42,22 @@ bytes and the pins against the JAX package.
   LMCS, so the B pictures take the host reconstruction and the device
   filter chain (LMCS_INTER_CENSUS); they read the IDR back from the
   device and enter the device DPB.
+
+Phase 13 decodes the rest of bench.py's configurations
+(BENCH_STREAMS, their sizes by picture_size; PREFIXES names the 4-frame
+streams that start them; tests/test_torch_bench_configs*.py check their
+bytes and pins):
+- tool-rich 8, SAO/ALF 8: all eight frames of the two above.
+- dense q27: bench.py "all-intra dense q27 832x480": the headline's
+  splits at QP 27 with residual density 0.5, 8 frames.
+- max-density q22: bench.py "max-density q22 832x480 (conformance-load
+  analog)": QP 22, density 0.85, levels up to 120, 6 frames; the
+  heaviest residual load the test encoder makes.
+- SAO/ALF 1080p: bench.py "all-intra+SAO/ALF 1920x1080", 4 frames; 1080
+  rows are 16 CTU rows and a bottom row of 56.
+- inter-LD 1080p: bench.py "inter-LD 1920x1080": an IDR and 5 low-delay
+  P pictures with bench.py's motion vector differences of up to +-32
+  (mv_range), so that references are read past the picture's edges.
 
 - vb (phase 12): tests/test_virtual_boundaries.py's _vb_stream at
   832x480 (its CTU 32 and QP 30): intra, SAO, ALF (two APSs) and
@@ -80,6 +97,23 @@ TOOL_RICH_MD5 = "bd363866f3c753c0ad020d2a7a5deb33"
 SAO_ALF_STREAM_KW = dict(w=832, h=480, n=4, seed=1)
 SAO_ALF_MD5 = "f70a3843453637ace35361b992e5e461"
 
+# the rest of bench.py's configurations (bench.py:211-252): all eight
+# frames of tool-rich and SAO/ALF, dense q27, max-density q22, and the
+# two 1920x1080 streams; pins as above
+TOOL_RICH_8_STREAM_KW = dict(TOOL_RICH_STREAM_KW, n_frames=8)
+TOOL_RICH_8_MD5 = "648bf11d9b6e818b7afd4af000c75d38"
+SAO_ALF_8_STREAM_KW = dict(SAO_ALF_STREAM_KW, n=8)
+SAO_ALF_8_MD5 = "750868ab632906394322184cf4f7cf15"
+DENSE_Q27_STREAM_KW = dict(width=832, height=480, ctu=64, n_frames=8, seed=3,
+                           qp=27, dec_kw=dict(split_prob=0.35, density=0.5))
+DENSE_Q27_MD5 = "cd84945dcec4a25f3f3110f2bd5e8358"
+MAX_DENSITY_Q22_STREAM_KW = dict(
+    width=832, height=480, ctu=64, n_frames=6, seed=7, qp=22,
+    dec_kw=dict(split_prob=0.4, density=0.85, max_level=120))
+MAX_DENSITY_Q22_MD5 = "135933e18788d7ea42a1f6ebe91c3eec"
+SAO_ALF_1080P_STREAM_KW = dict(w=1920, h=1080, n=4, seed=1)
+SAO_ALF_1080P_MD5 = "7e549eeea1c7d7b1e72e34bb6c0fad2e"
+
 LMCS_STREAM_KW = dict(seed=31, n_frames=2,
                       dec_kw=dict(split_prob=0.35, density=0.3),
                       chroma_scale=True, ctu=64, wh=(832, 480))
@@ -89,6 +123,8 @@ INTER_LD_STREAM_KW = dict(w=832, h=480, n=12, seed=5,
                           dec_kw=dict(split_prob=0.35, inter_prob=0.85,
                                       skip_prob=0.3, mv_range=32))
 INTER_LD_MD5 = "ef6588cfd3e09b6827d76475ed85bea4"
+INTER_LD_1080P_STREAM_KW = dict(INTER_LD_STREAM_KW, w=1920, h=1080, n=6)
+INTER_LD_1080P_MD5 = "8bb5a027f37ffc44543de62802281bf5"
 
 INTER_LDB_STREAM_KW = dict(
     w=832, h=480, n=6, seed=0,
@@ -185,17 +221,20 @@ def conceal_variant(stream: bytes, fault: str, poc: int) -> bytes:
 
 def headline_stream() -> bytes:
     """The headline Annex-B stream, made by the port's own test encoder."""
-    from vvdec_tpu_torch.testenc.encoder import generate_stream
-
-    s, _ = generate_stream(**HEADLINE_STREAM_KW)
-    return s
+    return intra_stream(**HEADLINE_STREAM_KW)
 
 
 def tool_rich_stream() -> bytes:
     """The tool-rich intra stream (MIP, CCLM, LFNST, explicit MTS)."""
+    return intra_stream(**TOOL_RICH_STREAM_KW)
+
+
+def intra_stream(**kw) -> bytes:
+    """generate_stream(**kw) of the port's own test encoder: all-intra
+    pictures, deblocking on, no SAO or ALF."""
     from vvdec_tpu_torch.testenc.encoder import generate_stream
 
-    s, _ = generate_stream(**TOOL_RICH_STREAM_KW)
+    s, _ = generate_stream(**kw)
     return s
 
 
@@ -439,4 +478,38 @@ STREAMS = {
     "RA": (lambda: ra_stream(**RA_STREAM_KW), RA_FRAMES, RA_MD5),
     "inter-LMCS": (lambda: lmcs_stream(**LMCS_INTER_STREAM_KW),
                    LMCS_INTER_STREAM_KW["n_frames"], LMCS_INTER_MD5),
+    # phase 13: the rest of bench.py's configurations
+    "dense q27": (lambda: intra_stream(**DENSE_Q27_STREAM_KW),
+                  DENSE_Q27_STREAM_KW["n_frames"], DENSE_Q27_MD5),
+    "max-density q22": (lambda: intra_stream(**MAX_DENSITY_Q22_STREAM_KW),
+                        MAX_DENSITY_Q22_STREAM_KW["n_frames"],
+                        MAX_DENSITY_Q22_MD5),
+    "tool-rich 8": (lambda: intra_stream(**TOOL_RICH_8_STREAM_KW),
+                    TOOL_RICH_8_STREAM_KW["n_frames"], TOOL_RICH_8_MD5),
+    "SAO/ALF 8": (lambda: sao_alf_stream(**SAO_ALF_8_STREAM_KW),
+                  SAO_ALF_8_STREAM_KW["n"], SAO_ALF_8_MD5),
+    "SAO/ALF 1080p": (lambda: sao_alf_stream(**SAO_ALF_1080P_STREAM_KW),
+                      SAO_ALF_1080P_STREAM_KW["n"], SAO_ALF_1080P_MD5),
+    "inter-LD 1080p": (lambda: inter_ld_stream(**INTER_LD_1080P_STREAM_KW),
+                       INTER_LD_1080P_STREAM_KW["n"], INTER_LD_1080P_MD5),
 }
+# the streams of phase 13, in its order, and their builders' keywords
+BENCH_STREAMS = {"dense q27": DENSE_Q27_STREAM_KW,
+                 "max-density q22": MAX_DENSITY_Q22_STREAM_KW,
+                 "tool-rich 8": TOOL_RICH_8_STREAM_KW,
+                 "SAO/ALF 8": SAO_ALF_8_STREAM_KW,
+                 "SAO/ALF 1080p": SAO_ALF_1080P_STREAM_KW,
+                 "inter-LD 1080p": INTER_LD_1080P_STREAM_KW}
+# the 4-frame streams that are, byte for byte, the first pictures of an
+# 8-frame one of BENCH_STREAMS, and so carry that decode's prefix pin
+PREFIXES = {"tool-rich": "tool-rich 8", "SAO/ALF": "SAO/ALF 8"}
+
+
+def picture_size(kw: dict) -> tuple[int, int]:
+    """(width, height) of the pictures a builder makes from `kw`, whichever
+    of the builders' spellings (width/height, w/h, wh) it uses."""
+    if "wh" in kw:
+        return tuple(kw["wh"])
+    if "width" in kw:
+        return kw["width"], kw["height"]
+    return kw["w"], kw["h"]
