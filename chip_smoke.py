@@ -8,7 +8,8 @@ result line:
 
 1. the card: torch / CUDA versions and the card's name and power limit;
 2. the build: nvcc compiles every kernel of the decode path from
-   vvdec_tpu_torch/csrc/ into build/kernels/;
+   vvdec_tpu_torch/csrc/ into build/kernels/ (itx.cu and
+   intra_wavefront.cu, one nvcc each, started together);
 3. each kernel against its plain PyTorch version on the card, bit-equal,
    with its time, the plain version's time and its bound per shape,
    through the one-group wrapper itx_batch_cuda;
@@ -17,17 +18,26 @@ result line:
    vvdec_tpu_torch.decoder.decode_annexb on CUDA; the ITX kernel must be
    launched exactly once per decoded frame (itx_frame_cuda) and the
    decoded YUV must have the MD5 the CPU tests pin to the reference
-   decoder; then the kernel is held to its plain version, and timed, on
-   every frame's inputs as the main path gave them, the per-shape table
-   is redone from one-group launches of those frames' TUs, and the stage
-   split of a profiled decode is printed;
+   decoder, and the intra wavefront kernel launched once per picture
+   with intra units (intra_wavefront_cuda, in every timed decode of
+   phases 4-8, 10 and 13); then the ITX kernel is held to its plain
+   version, and timed, on every frame's inputs as the main path gave
+   them, the per-shape table is redone from one-group launches of those
+   frames' TUs, the stage split of a profiled decode is printed with the
+   intra steps a frame by mode class, and the intra wavefront kernel is
+   held to intra_wavefront_ref on every frame's recorded inputs (the
+   planes before the scan, residuals, step batches, LMCS table), with
+   per picture the kernel's device time, the plain version's (frame 0),
+   the bound, the steps and the dependency levels;
 5. intra LMCS: the intra LMCS stream (chroma residual scaling; 2
    frames, 832x480, made by the port's own test encoder,
    vvdec_tpu_torch/streams.py): a warm-up decode that records the ITX
    kernel's inputs, a timed decode (one ITX launch per frame, the MD5
    the CPU tests pin to the reference decoder) and a profiled decode
    with its stage split; the kernel is held to its plain version on
-   every recorded frame;
+   every recorded frame, and the intra wavefront kernel to its plain
+   version on the first picture (as in phases 6-8: the first picture
+   with intra units of every stream);
 6. inter pictures: the inter-LD stream (bench.py "inter-LD 832x480": an
    IDR and 11 low-delay P pictures) and the inter-LDB tools stream (an
    IDR and 5 low-delay B pictures with affine + PROF, SbTMVP, MMVD, GPM,
@@ -107,8 +117,10 @@ result line:
    the pinned MD5, an empty fallback census and one itx_frame_cuda
    launch per frame; it prints
    the stage split, intra steps a frame, frames/s and the card's peak
-   allocated memory.  The kernel is held to its plain version on every
-   recorded frame; on the max-density and 1080p frames it prints per
+   allocated memory.  The ITX kernel is held to its plain version on
+   every recorded frame, the intra wavefront kernel on the first picture
+   and on every 1080p IDR picture; on the max-density and 1080p frames
+   the ITX kernel prints per
    frame the kernel's device ms (torch.profiler, as for the headline,
    over a trace of 300 launches of the frame: short traces lose most of
    their events), the wrapper calls' ms, the bound and the TU count.
@@ -121,8 +133,8 @@ when a phase fails.
 Each phase prints its wall time.  The last three lines of standard
 output are the kernels' JSON summary, the card's name and power limit,
 and {"ok": true, "device": ...}.  The summary has two entries for the
-one kernel, one per entry point.  In the itx_frame entry, launches counts the
-ITX launches of the timed decodes of phases 4-8 and 13 and of phase 10's
+ITX kernel, one per entry point, and one for the intra wavefront.  In
+the itx_frame entry, launches counts the ITX launches of the timed decodes of phases 4-8 and 13 and of phase 10's
 and 11's in-process decodes (not those of the CLI's, the pool's or the
 ranks' processes),
 and max_abs_err covers every comparison of the kernel with its plain
@@ -138,7 +150,13 @@ is printed beside it.  In the itx_batch entry, launches counts phase
 12's itx_batch_cuda launches (the comparisons of phases 3 and 4 are not
 counted), max_abs_err covers phases 3 and 12, and ms, plain_ms,
 call_ms and bound_ms (int32 levels in) are per frame of phase 12's
-headline picture, summed over the frame's group launches.
+headline picture, summed over the frame's group launches.  In the
+intra_wavefront entry, launches counts the intra_wavefront_cuda launches
+of the timed decodes of phases 4-8 and 13 and of phase 10's decodes,
+max_abs_err covers every comparison with intra_wavefront_ref, and ms,
+plain_ms and bound_ms are the headline's first picture's: the kernel's
+device time (torch.profiler, 100 launches), the plain version's (one
+run) and the bytes it must move (wavefront_work) over HBM_BYTES_PER_S.
 Needs a CUDA device; imports neither JAX nor the JAX package.
 """
 
@@ -163,6 +181,8 @@ PEAK_INT8_OPS_PER_S = 1979e12
 PEAK_F32_OPS_PER_S = 67e12
 TABLE_ROW_BYTES = 40        # one TU row of the work table (10 int32)
 BIT_DEPTH = 10
+# the sources of csrc/ the decode path runs, built in phase 2
+KERNELS = ("itx", "intra_wavefront")
 
 
 class SmokeFailure(Exception):
@@ -231,6 +251,24 @@ def device_ms(fn, reps: int, match: str | None = None,
     return sum(spans) / len(spans) / 1e3 * launches
 
 
+def trace_device_ms(fn) -> float:
+    """Device ms of one fn() call: the summed durations of the device
+    kernels and copies in a torch.profiler trace of CUDA activity alone,
+    read from the raw kineto events.  For calls of ~10^5 small kernels
+    (the intra wavefront's plain version), where turning the trace into
+    FunctionEvents (device_ms) takes longer than the call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA)
+    fail_unless(ns > 0, "torch.profiler recorded no device activity")
+    return ns / 1e6
+
+
 def itx_work(n: int, h: int, w: int, level_bytes: int = 2
              ) -> tuple[int, int, int, int]:
     """(bytes, int8 operations, first-port bytes, first-port operations)
@@ -284,12 +322,28 @@ def phase_card() -> str:
 
 
 def phase_build() -> None:
-    from vvdec_tpu_torch.ops.cuda._build import library_path, load_kernel
-    cached = os.path.exists(library_path("itx"))
+    """Every kernel of the decode path, one nvcc each, all started
+    together; then each library is loaded."""
+    import concurrent.futures
+
+    from vvdec_tpu_torch.ops.cuda._build import (build_kernel, library_path,
+                                                 load_kernel)
+
+    def build(name):
+        cached = os.path.exists(library_path(name))
+        t0 = time.perf_counter()
+        build_kernel(name)
+        return cached, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    load_kernel("itx")
-    print(f"[build] csrc/itx.cu -> {os.path.relpath(library_path('itx'))} "
-          f"{'(already built) ' if cached else ''}in "
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as ex:
+        done = dict(zip(KERNELS, ex.map(build, KERNELS)))
+    for name, (cached, dt) in done.items():
+        load_kernel(name)
+        print(f"[build] csrc/{name}.cu -> "
+              f"{os.path.relpath(library_path(name))} "
+              f"{'(already built) ' if cached else ''}in {dt:.2f} s")
+    print(f"[build] {len(KERNELS)} kernels in "
           f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -487,14 +541,19 @@ def itx_recording(recorded: list, host: bool = False, census=None,
 
 
 def recording_decode(stream: bytes, label: str, census=None,
-                     refined=None) -> list:
-    """One decode on CUDA inside itx_recording(census=, refined=).
-    Returns the recorded calls."""
+                     refined=None, wavefront=None) -> list:
+    """One decode on CUDA inside itx_recording(census=, refined=) and,
+    with `wavefront` (a WavefrontLog), wavefront_recording.  Returns the
+    recorded ITX calls."""
     import torch
 
     from vvdec_tpu_torch.decoder import decode_annexb
     recorded: list = []
-    with itx_recording(recorded, census=census, refined=refined):
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(itx_recording(recorded, census=census,
+                                          refined=refined))
+        if wavefront is not None:
+            stack.enter_context(wavefront_recording(wavefront))
         t0 = time.perf_counter()
         decode_annexb(stream)
         torch.cuda.synchronize()
@@ -505,15 +564,19 @@ def recording_decode(stream: bytes, label: str, census=None,
 def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
                  label: str, census=None, device_frames=None,
                  size=(832, 480), recorded=None, prefix=None,
-                 profile=False) -> dict:
+                 profile=False, wavefront=None) -> dict:
     """The path as a user drives it: a StreamDecoder on CUDA fed the
     whole stream, then flushed (what decode_annexb does), with the
     kernels' launch counts set to 0 just before and read just after.
     Fails unless the YUV has its pinned MD5, the pictures are `size`
     (width, height) 4:2:0, the decoder's fallback census equals `census`
-    (default: empty, every picture on the device) and the ITX kernel was
+    (default: empty, every picture on the device), the ITX kernel was
     launched once per device picture (`device_frames`, default every
-    frame).  With `recorded` (a list) the decode also records each
+    frame) and the intra wavefront kernel once per picture whose scan
+    has a step, at least once.  The wavefront calls go through
+    `wavefront` (a WavefrontLog, default one that keeps no inputs), which
+    counts their steps by mode class.  With `recorded` (a list) the
+    decode also records each
     itx_frame_cuda call's inputs there, in host memory (itx_recording);
     with `prefix` (n, pin) the YUV of the first n frames must have the
     MD5 `pin` (the pin of the stream's first n pictures alone: a picture
@@ -524,18 +587,22 @@ def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
     import torch
 
     from vvdec_tpu_torch.decoder import StreamDecoder
+    from vvdec_tpu_torch.ops.cuda.intra import intra_wavefront_cuda
     from vvdec_tpu_torch.ops.cuda.itx import itx_batch_cuda, itx_frame_cuda
     from vvdec_tpu_torch.utils.trace import profiler
     census = census or {}
     device_frames = n_frames if device_frames is None else device_frames
-    recording = (contextlib.nullcontext() if recorded is None
-                 else itx_recording(recorded, host=True))
+    log = WavefrontLog() if wavefront is None else wavefront
     profiler.reset()
     profiler.enabled = profile
     try:
-        with recording:
+        with contextlib.ExitStack() as stack:
+            if recorded is not None:
+                stack.enter_context(itx_recording(recorded, host=True))
+            stack.enter_context(wavefront_recording(log))
             itx_frame_cuda.launches = 0
             itx_batch_cuda.launches = 0
+            intra_wavefront_cuda.launches = 0
             t0 = time.perf_counter()
             dec = StreamDecoder()
             frames = [p.planes for p in dec.push(stream) + dec.flush()]
@@ -543,6 +610,7 @@ def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
             dt = time.perf_counter() - t0
             launches = itx_frame_cuda.launches
             batch_launches = itx_batch_cuda.launches
+            intra_launches = intra_wavefront_cuda.launches
     finally:
         profiler.enabled = False
     md5 = yuv_md5(frames)
@@ -550,7 +618,9 @@ def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
     print(f"[{label}] StreamDecoder on cuda{' (profiled)' if profile else ''}"
           f": {len(frames)} frames in {dt:.3f} s = {len(frames) / dt:.2f} "
           f"frames/s; itx launches {launches} (itx_batch_cuda "
-          f"{batch_launches}); md5 {md5}; fallback census {got}")
+          f"{batch_launches}); intra_wavefront launches {intra_launches} "
+          f"for {log.pictures} pictures with intra units; md5 {md5}; "
+          f"fallback census {got}")
     fail_unless(len(frames) == n_frames, f"{label}: {len(frames)} frames "
                 f"decoded, expected {n_frames}")
     w, h = size
@@ -565,39 +635,39 @@ def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
     fail_unless(launches == device_frames, f"{label}: {launches} ITX kernel "
                 f"launches for {device_frames} pictures decoded on the "
                 f"device")
+    fail_unless(intra_launches == log.pictures and intra_launches > 0,
+                f"{label}: {intra_launches} intra_wavefront kernel launches "
+                f"for {log.pictures} pictures with intra units")
     fail_unless(md5 == md5_pin, f"{label}: decoded YUV md5 {md5} != pinned "
                 f"{md5_pin}")
     fail_unless(got == census, f"{label}: fallback census {got} != "
                 f"{census}")
     out = dict(fps=len(frames) / dt, decode_s=dt, launches=launches,
-               md5=md5, census=got)
+               intra_launches=intra_launches, md5=md5, census=got,
+               intra_steps_by_class=log.steps_by_class(n_frames))
     if profile:
-        out["stages_ms_per_frame"] = stage_split(n_frames, dt, label)
+        out["stages_ms_per_frame"] = stage_split(n_frames, dt, label, log)
     return out
 
 
-def stage_split(n_frames: int, seconds: float, label: str) -> dict:
+def stage_split(n_frames: int, seconds: float, label: str,
+                log: WavefrontLog) -> dict:
     """The profiler's totals of a decode of n_frames that took `seconds`,
-    printed and returned as ms per frame by stage, with the intra steps
-    by mode class, the filter and MC stages in all, the intra steps a
-    frame and the frames/s."""
+    printed and returned as ms per frame by stage, with the filter and
+    MC stages in all, the intra wavefront's steps a frame by mode class
+    (from `log`) and the frames/s."""
     from vvdec_tpu_torch.utils.trace import profiler
-    stages = {k: v / n_frames * 1e3 for k, v in profiler.totals.items()
-              if not k.startswith("intra step: ")}
+    stages = {k: v / n_frames * 1e3 for k, v in profiler.totals.items()}
     fps = n_frames / seconds
-    steps = {k[len("intra step: "):]: (v / n_frames * 1e3,
-                                       profiler.counts[k] / n_frames)
-             for k, v in profiler.totals.items()
-             if k.startswith("intra step: ")}
     print(f"[{label}] profiled decode {seconds:.3f} s = {fps:.2f} frames/s;"
           f" stage ms per frame (synchronised):")
     for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"[{label}]   {k:<26} {v:9.3f} ms in {profiler.counts[k]} "
               f"calls")
-    # the intra stage by mode class: host time of its steps (no sync)
-    for k, (v, n) in sorted(steps.items(), key=lambda kv: -kv[1][0]):
-        print(f"[{label}]   intra {k:<20} {v:9.3f} ms in {n:6.1f} steps = "
-              f"{v / max(n, 1e-9):.3f} ms per step")
+    steps = log.steps_by_class(n_frames)
+    print(f"[{label}]   intra steps a frame by class: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in steps.items())
+          + f"; in all {sum(steps.values()):.1f}")
     stages["intra steps by class"] = steps
     # the device filter chain in all (what earlier runs called
     # filter+pack) and the MC stage in all
@@ -605,7 +675,7 @@ def stage_split(n_frames: int, seconds: float, label: str) -> dict:
         stages[key] = sum(v for k, v in stages.items()
                           if isinstance(v, float) and k.startswith(prefix))
         print(f"[{label}]   {key:<26} {stages[key]:9.3f}")
-    stages["intra steps a frame"] = sum(n for _, n in steps.values())
+    stages["intra steps a frame"] = sum(steps.values())
     stages["profiled frames/s"] = fps
     return stages
 
@@ -625,6 +695,138 @@ def check_frames(recorded, errs: list, label: str) -> None:
     torch.cuda.synchronize()
     print(f"[{label}] itx kernel == plain version on all {len(recorded)} "
           f"recorded frames")
+
+
+class WavefrontLog:
+    """What the intra_wavefront_cuda calls of a decode did, while
+    `wavefront_recording(log)` is open: the pictures it ran (calls with
+    at least one step, each one kernel launch on the card), their steps
+    by mode class, and the inputs of the first `keep` such calls (the
+    planes as they were before the call; in host memory with `host`)."""
+
+    def __init__(self, keep: int = 0, host: bool = False):
+        import collections
+        self.keep, self.host = keep, host
+        self.pictures = 0
+        self.steps: collections.Counter = collections.Counter()
+        self.recorded: list = []
+
+    def steps_by_class(self, n_frames: int) -> dict:
+        """Steps a frame by mode class name."""
+        from vvdec_tpu_torch.ops.intra_device import STEP_STAGES
+        return {STEP_STAGES[mc].split(": ")[1]: n / n_frames
+                for mc, n in sorted(self.steps.items())}
+
+
+@contextlib.contextmanager
+def wavefront_recording(log: WavefrontLog):
+    """While open, every intra_wavefront_cuda call of the decoder goes
+    through `log` (WavefrontLog), then runs the wrapper."""
+    import numpy as np
+
+    import vvdec_tpu_torch.ops.intra_device as intra_device
+    from vvdec_tpu_torch.ops.cuda.intra import intra_wavefront_cuda
+
+    def keep(t):
+        return t.cpu() if log.host else t.clone()
+
+    def recorder(buf, resi, batches, consts, lm, **kw):
+        b = np.asarray(batches)
+        if b.shape[0]:
+            log.pictures += 1
+            log.steps.update(b[:, 0, 7].tolist())
+            if len(log.recorded) < log.keep:
+                log.recorded.append(dict(
+                    buf=keep(buf), resi=keep(resi), batches=b.copy(),
+                    lm=None if lm is None else keep(lm), kw=dict(kw)))
+        return intra_wavefront_cuda(buf, resi, batches, consts, lm, **kw)
+
+    intra_device.intra_wavefront_cuda = recorder
+    try:
+        yield log
+    finally:
+        intra_device.intra_wavefront_cuda = intra_wavefront_cuda
+
+
+def wavefront_work(batches, has_lmcs: bool) -> int:
+    """The bytes one picture's wavefront must move at least: the step
+    batches and the constant tables in, each unit's output written once,
+    its residual read where it has one (d[9]), CIIP's inter prediction
+    read, the LMCS table where the picture has one.  References and
+    CCLM's luma are earlier units' outputs, which need not leave the
+    chip."""
+    import numpy as np
+
+    from vvdec_tpu_torch.ops.cuda.intra import CONST_LEN
+    from vvdec_tpu_torch.ops.intra_device import LM_LEN
+    rows = batches.reshape(-1, batches.shape[-1])
+    rows = rows[rows[:, 28] == 1]
+    area = (np.clip(rows[:, 3], 0, 64) * np.clip(rows[:, 4], 0, 64)
+            ).astype(np.int64)
+    return int(4 * (batches.size + area.sum() + area[rows[:, 9] == 1].sum()
+                    + area[rows[:, 7] == 5].sum() + CONST_LEN
+                    + (LM_LEN if has_lmcs else 0)))
+
+
+def run_wavefront(fn, rec, buf):
+    """One recorded picture's wavefront through fn (the wrapper or its
+    plain version) on the card, in place on buf."""
+    import torch
+
+    from vvdec_tpu_torch.ops.cuda.intra import intra_consts
+    dev = torch.device("cuda")
+    lm = rec["lm"]
+    return fn(buf, rec["resi"].to(dev), rec["batches"], intra_consts(dev),
+              None if lm is None else lm.to(dev), **rec["kw"])
+
+
+def check_wavefront(recorded, errs: list, label: str, schedule: list,
+                    plain_time: int = 1) -> list:
+    """The intra wavefront kernel against its plain version on every
+    recorded picture, bit-equal over the three planes, and each
+    picture's device times (torch.profiler): the kernel over 100
+    launches (device_ms), the plain version (~300 small kernels a step)
+    over one run (trace_device_ms) on the first `plain_time` pictures;
+    the bound (wavefront_work over
+    HBM_BYTES_PER_S), the steps and, from `schedule`
+    (wavefront_schedule's pictures with intra units, in decode order),
+    the dependency levels and units.  Returns a dict per picture."""
+    import torch
+
+    from vvdec_tpu_torch.ops.cuda.intra import (intra_wavefront_cuda,
+                                                intra_wavefront_ref)
+    out = []
+    for i, rec in enumerate(recorded):
+        buf0 = rec["buf"].cuda()
+        got = run_wavefront(intra_wavefront_cuda, rec, buf0.clone())
+        want = run_wavefront(intra_wavefront_ref, rec, buf0.clone())
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        errs.append(err)
+        fail_unless(err == 0, f"{label}: intra wavefront picture {i} on the "
+                    f"path's inputs: max |err| {err}")
+        scratch = buf0.clone()
+        k_ms = device_ms(lambda: run_wavefront(intra_wavefront_cuda, rec,
+                                               scratch), 100,
+                         "intra_wavefront_kernel", launches=1)
+        p_ms = trace_device_ms(lambda: run_wavefront(
+            intra_wavefront_ref, rec, scratch)) if i < plain_time else None
+        steps = rec["batches"].shape[0]
+        sched = schedule[i]
+        fail_unless(sched["steps"] == steps, f"{label}: picture {i} has "
+                    f"{steps} steps, the host planner {sched['steps']}")
+        b_ms = wavefront_work(rec["batches"], rec["kw"]["has_lmcs"]) \
+            / HBM_BYTES_PER_S * 1e3
+        print(f"[{label}] intra_wavefront picture {sched['picture']}: "
+              f"{steps} steps, {sched['levels']} levels, {sched['units']} "
+              f"units; device time kernel {k_ms:.4f} ms ("
+              f"{k_ms / steps * 1e3:.2f} us a step), plain "
+              + ("not measured" if p_ms is None else f"{p_ms:.3f} ms")
+              + f"; bound {b_ms:.6f} ms (bytes); bit-equal")
+        out.append(dict(sched, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                        bound_by="bytes"))
+        del buf0, got, want, scratch
+    return out
 
 
 def run_frame(fn, rec, resi):
@@ -666,7 +868,7 @@ def frame_times(recorded, n_frames: int) -> dict:
                 itx_bound_int32_f32_ms=b1_ms, itx_bound_int32_f32_by=by1)
 
 
-def phase_main_path(errs: list) -> dict:
+def phase_main_path(errs: list, werrs: list) -> dict:
     from vvdec_tpu_torch.streams import (HEADLINE_MD5, HEADLINE_STREAM_KW,
                                          headline_stream)
 
@@ -680,7 +882,8 @@ def phase_main_path(errs: list) -> dict:
     # warm-up decode; it also records the kernel's inputs as the main
     # path gives them and counts the TUs of the PyTorch residual paths
     census = {"transform skip": 0, "lfnst": 0, "scaling list": 0}
-    recorded = recording_decode(stream, "main", census)
+    wf = WavefrontLog(keep=n_frames)
+    recorded = recording_decode(stream, "main", census, wavefront=wf)
     fail_unless(len(recorded) == n_frames, f"the warm-up decode made "
                 f"{len(recorded)} itx_frame_cuda calls for {n_frames} "
                 f"frames")
@@ -702,15 +905,21 @@ def phase_main_path(errs: list) -> dict:
     shapes = phase_shape_groups(recorded, rows, n_frames)
     stages = timed_decode(stream, n_frames, HEADLINE_MD5, "main",
                           profile=True)["stages_ms_per_frame"]
+    wave = wavefront_checks(stream, n_frames, stages, "main", wf, werrs)
+    pics = wave["intra_kernel"]
+    print(f"[main] intra_wavefront per frame (mean of {len(pics)}): "
+          f"{res['intra_launches'] / n_frames:.2f} launches; device time "
+          f"kernel {sum(p['ms'] for p in pics) / len(pics):.4f} ms; bound "
+          f"{sum(p['bound_ms'] for p in pics) / len(pics):.6f} ms (bytes); "
+          f"plain version on picture 0 {pics[0]['plain_ms']:.3f} ms")
     return dict(res, launches_per_frame=res["launches"] / n_frames,
                 census_per_frame=dict(
                     kernel=sum(map(len, rows)) / n_frames,
                     **{k: v / n_frames for k, v in census.items()}),
-                **times, shapes=shapes, stages_ms_per_frame=stages,
-                **wavefront_schedule(stream, n_frames, stages, "main"))
+                **times, shapes=shapes, stages_ms_per_frame=stages, **wave)
 
 
-def phase_lmcs(errs: list) -> dict:
+def phase_lmcs(errs: list, werrs: list) -> dict:
     """The intra LMCS stream, decoded as the headline is, its ITX inputs
     held to the plain version."""
     from vvdec_tpu_torch.streams import STREAMS
@@ -720,7 +929,8 @@ def phase_lmcs(errs: list) -> dict:
     stream = BUILT[name] = builder()
     print(f"[{name}] stream 832x480 x {n_frames} frames, {len(stream)} "
           f"bytes, made in {time.perf_counter() - t0:.1f} s")
-    recorded = recording_decode(stream, name)
+    wf = WavefrontLog(keep=1)
+    recorded = recording_decode(stream, name, wavefront=wf)
     fail_unless(len(recorded) == n_frames, f"{name}: the warm-up decode "
                 f"made {len(recorded)} itx_frame_cuda calls for {n_frames} "
                 f"frames")
@@ -729,7 +939,7 @@ def phase_lmcs(errs: list) -> dict:
     stages = timed_decode(stream, n_frames, md5_pin, name,
                           profile=True)["stages_ms_per_frame"]
     res.update(stages_ms_per_frame=stages,
-               **wavefront_schedule(stream, n_frames, stages, name))
+               **wavefront_checks(stream, n_frames, stages, name, wf, werrs))
     return res
 
 
@@ -803,29 +1013,59 @@ def phase_shape_groups(recorded, rows, n_frames) -> list:
 
 def wavefront_schedule(stream: bytes, n_frames: int, stages: dict,
                        label: str) -> dict:
-    """Intra units and wavefront steps per frame of the stream, from the
-    port's host planner (WAVEFRONT_K units per step, as run_intra_scan
-    uses), and the profiled intra stage's ms per step."""
+    """Intra units, wavefront steps and dependency levels per frame of
+    the stream, from the port's host planner (WAVEFRONT_K units per step,
+    as run_intra_scan uses; pictures build_intra_descriptors rejects,
+    and inter pictures with LMCS, which the decoder reconstructs on the
+    host as "lmcs_inter", count none), the profiled intra stage's ms per step,
+    and per picture with intra units, in decode order, its index, units,
+    steps and levels."""
     from vvdec_tpu_torch.decoder import parse_annexb
+    from vvdec_tpu_torch.frame.structure import MODE_INTRA
+    from vvdec_tpu_torch.ops.frame_device import _lmcs_on
     from vvdec_tpu_torch.ops.intra_device import (WAVEFRONT_K,
                                                   build_intra_descriptors,
                                                   build_wavefront_batches,
                                                   compute_unit_levels)
-    units = steps = 0
-    for f in parse_annexb(stream):
+    pictures = []
+    for i, f in enumerate(parse_annexb(stream)):
+        if _lmcs_on(f.cs) and any(cu.pred_mode != MODE_INTRA
+                                  for cu in f.cs.cus):
+            continue
         desc, reason = build_intra_descriptors(f.cs)
-        fail_unless(reason is None, f"plan rejected a picture: {reason}")
+        if reason is not None or desc.shape[0] == 0:
+            continue
         lvl = compute_unit_levels(desc, f.cs.sps.chroma_format_idc)
-        units += desc.shape[0]
-        steps += build_wavefront_batches(desc, lvl, WAVEFRONT_K).shape[0]
+        pictures.append(dict(
+            picture=i, units=desc.shape[0], levels=int(lvl.max()),
+            steps=build_wavefront_batches(desc, lvl, WAVEFRONT_K).shape[0]))
+    units, steps, levels = (sum(p[k] for p in pictures)
+                            for k in ("units", "steps", "levels"))
     per_step = stages.get("intra", 0.0) * n_frames / max(steps, 1)
-    print(f"[{label}] intra wavefront: {units / n_frames:.1f} units and "
-          f"{steps / n_frames:.1f} steps per frame, {per_step:.3f} ms per "
-          f"step")
-    return dict(intra_units=units / n_frames, intra_steps=steps / n_frames)
+    print(f"[{label}] intra wavefront: {units / n_frames:.1f} units, "
+          f"{steps / n_frames:.1f} steps and {levels / n_frames:.1f} "
+          f"dependency levels per frame, {per_step:.4f} ms of the intra "
+          f"stage per step")
+    return dict(intra_units=units / n_frames, intra_steps=steps / n_frames,
+                intra_levels=levels / n_frames, intra_pictures=pictures)
 
 
-def phase_ra(errs: list) -> dict:
+def wavefront_checks(stream: bytes, n_frames: int, stages: dict,
+                     label: str, log: WavefrontLog, werrs: list,
+                     plain_time: int = 1) -> dict:
+    """wavefront_schedule of the stream, then check_wavefront on the
+    pictures `log` recorded (the first ones with intra units)."""
+    sched = wavefront_schedule(stream, n_frames, stages, label)
+    fail_unless(len(sched["intra_pictures"]) == log.pictures, f"{label}: "
+                f"the host planner has {len(sched['intra_pictures'])} "
+                f"pictures with intra units, the decode ran {log.pictures}")
+    fail_unless(len(log.recorded) == min(log.keep, log.pictures),
+                f"{label}: {len(log.recorded)} wavefront inputs recorded")
+    return dict(sched, intra_kernel=check_wavefront(
+        log.recorded, werrs, label, sched["intra_pictures"], plain_time))
+
+
+def phase_ra(errs: list, werrs: list) -> dict:
     """The RA stream: decoded as the inter streams are, with an empty
     fallback census; the profiled decode must show the DMVR and BDOF
     stages, and the warm-up decode counts their CUs and subblocks."""
@@ -837,7 +1077,8 @@ def phase_ra(errs: list) -> dict:
     print(f"[{name}] stream 832x480 x {n_frames} frames, {len(stream)} "
           f"bytes, made in {time.perf_counter() - t0:.1f} s")
     refined: list = []
-    recorded = recording_decode(stream, name, refined=refined)
+    wf = WavefrontLog(keep=1)
+    recorded = recording_decode(stream, name, refined=refined, wavefront=wf)
     fail_unless(len(recorded) == n_frames, f"{name}: the warm-up decode "
                 f"made {len(recorded)} itx_frame_cuda calls for {n_frames} "
                 f"frames")
@@ -854,11 +1095,11 @@ def phase_ra(errs: list) -> dict:
     fail_unless(stages.get("mc: DMVR", 0) > 0 and stages.get("mc: BDOF", 0)
                 > 0, f"{name}: the stage split lacks mc: DMVR or mc: BDOF")
     res.update(stages_ms_per_frame=stages, refined_per_picture=refined,
-               **wavefront_schedule(stream, n_frames, stages, name))
+               **wavefront_checks(stream, n_frames, stages, name, wf, werrs))
     return res
 
 
-def phase_host_recon(errs: list) -> dict:
+def phase_host_recon(errs: list, werrs: list) -> dict:
     """The inter-LMCS stream: the IDR on the device, the two B pictures
     (inter LMCS) reconstructed on the host and filtered on the device.
     The pinned MD5 and census, one ITX launch per device picture, and the
@@ -871,7 +1112,8 @@ def phase_host_recon(errs: list) -> dict:
     stream = builder()
     print(f"[{name}] stream 832x480 x {n_frames} frames, {len(stream)} "
           f"bytes, made in {time.perf_counter() - t0:.1f} s")
-    recorded = recording_decode(stream, name)
+    wf = WavefrontLog(keep=1)
+    recorded = recording_decode(stream, name, wavefront=wf)
     fail_unless(len(recorded) == device_frames, f"{name}: the warm-up "
                 f"decode made {len(recorded)} itx_frame_cuda calls for "
                 f"{device_frames} device pictures")
@@ -885,7 +1127,8 @@ def phase_host_recon(errs: list) -> dict:
     fail_unless(stages.get("recon", 0) > 0 and stages.get(
         "filter(submit)", 0) > 0, f"{name}: the stage split lacks the host "
                 f"reconstruction or the device filter submit")
-    res.update(stages_ms_per_frame=stages, device_frames=device_frames)
+    res.update(stages_ms_per_frame=stages, device_frames=device_frames,
+               **wavefront_checks(stream, n_frames, stages, name, wf, werrs))
     return res
 
 
@@ -941,7 +1184,7 @@ def phase_device_busy() -> dict:
                 device_ops_per_frame=len(spans) / n_frames)
 
 
-def phase_inter(errs: list) -> dict:
+def phase_inter(errs: list, werrs: list) -> dict:
     """The inter-LD and inter-LDB tools streams, each decoded as the
     tool-set streams are; the ITX kernel's per-frame times on the
     inter-LD frames."""
@@ -953,7 +1196,8 @@ def phase_inter(errs: list) -> dict:
         stream = BUILT[name] = builder()
         print(f"[{name}] stream 832x480 x {n_frames} frames, {len(stream)} "
               f"bytes, made in {time.perf_counter() - t0:.1f} s")
-        recorded = recording_decode(stream, name)
+        wf = WavefrontLog(keep=1)
+        recorded = recording_decode(stream, name, wavefront=wf)
         fail_unless(len(recorded) == n_frames, f"{name}: the warm-up decode "
                     f"made {len(recorded)} itx_frame_cuda calls for "
                     f"{n_frames} frames")
@@ -972,8 +1216,8 @@ def phase_inter(errs: list) -> dict:
                   f"{times['itx_call_ms']:.4f} ms")
         stages = timed_decode(stream, n_frames, md5_pin, name,
                               profile=True)["stages_ms_per_frame"]
-        res.update(stages_ms_per_frame=stages,
-                   **wavefront_schedule(stream, n_frames, stages, name))
+        res.update(stages_ms_per_frame=stages, **wavefront_checks(
+            stream, n_frames, stages, name, wf, werrs))
         out[name] = res
     return out
 
@@ -1065,29 +1309,34 @@ def api_decode(stream: bytes, n_frames: int, md5_pin: str, label: str,
 
     import vvdec_tpu_torch.ops.frame_device as frame_device
     from vvdec_tpu_torch.api import Decoder, DecoderParams
+    from vvdec_tpu_torch.ops.cuda.intra import intra_wavefront_cuda
     from vvdec_tpu_torch.ops.cuda.itx import itx_batch_cuda, itx_frame_cuda
     aus = access_units(stream)
+    log = WavefrontLog()
     itx_frame_cuda.launches = 0
     itx_batch_cuda.launches = 0
+    intra_wavefront_cuda.launches = 0
     frame_device.itx_frame_cuda = itx_recorder(recorded)
     try:
-        t0 = time.perf_counter()
-        dec = Decoder(DecoderParams(
-            threads=threads, err_handling="conceal" if conceal else
-            "strict"))
-        frames, first = [], None
-        for au in aus:
-            frames += dec.decode(au)
-            if frames and first is None:
-                first = time.perf_counter() - t0
-        frames += dec.flush()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        if first is None:   # every frame came out of the flush
-            first = dt
+        with wavefront_recording(log):
+            t0 = time.perf_counter()
+            dec = Decoder(DecoderParams(
+                threads=threads, err_handling="conceal" if conceal else
+                "strict"))
+            frames, first = [], None
+            for au in aus:
+                frames += dec.decode(au)
+                if frames and first is None:
+                    first = time.perf_counter() - t0
+            frames += dec.flush()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if first is None:   # every frame came out of the flush
+                first = dt
     finally:
         frame_device.itx_frame_cuda = itx_frame_cuda
     launches = itx_frame_cuda.launches
+    intra_launches = intra_wavefront_cuda.launches
     md5 = yuv_md5([f.planes for f in frames])
     census = dec.get_fallback_census()
     errors = tuple(f.poc for f in frames if f.picture.error)
@@ -1101,7 +1350,9 @@ def api_decode(stream: bytes, n_frames: int, md5_pin: str, label: str,
           f"access units: {len(frames)} frames in {dt:.3f} s = "
           f"{len(frames) / dt:.2f} frames/s; first frame after "
           f"{first:.3f} s; itx launches {launches} (itx_batch_cuda "
-          f"{itx_batch_cuda.launches}); md5 {md5}; census {census}"
+          f"{itx_batch_cuda.launches}); intra_wavefront launches "
+          f"{intra_launches} for {log.pictures} pictures with intra units; "
+          f"md5 {md5}; census {census}"
           + (f"; error POCs {errors}, error_pictures {n_err}, grey {grey}"
              if conceal else ""))
     fail_unless(len(frames) == n_frames, f"{label}: {len(frames)} frames, "
@@ -1117,8 +1368,11 @@ def api_decode(stream: bytes, n_frames: int, md5_pin: str, label: str,
     fail_unless(launches == n_frames - grey, f"{label}: {launches} ITX "
                 f"launches for {n_frames - grey} pictures decoded on the "
                 f"device")
+    fail_unless(intra_launches == log.pictures and intra_launches > 0,
+                f"{label}: {intra_launches} intra_wavefront launches for "
+                f"{log.pictures} pictures with intra units")
     return dict(fps=len(frames) / dt, decode_s=dt, first_frame_s=first,
-                launches=launches, md5=md5)
+                launches=launches, intra_launches=intra_launches, md5=md5)
 
 
 def phase_api(errs: list) -> dict:
@@ -1140,7 +1394,8 @@ def phase_api(errs: list) -> dict:
         print(f"[api] headline threads={threads}: frames/s "
               f"{[round(r['fps'], 3) for r in sel]}, first-frame delay "
               f"{[round(r['first_frame_s'], 3) for r in sel]} s")
-    return dict(runs=runs, launches=sum(r["launches"] for r in runs))
+    return dict(runs=runs, launches=sum(r["launches"] for r in runs),
+                intra_launches=sum(r["intra_launches"] for r in runs))
 
 
 def phase_conceal(errs: list) -> dict:
@@ -1163,7 +1418,9 @@ def phase_conceal(errs: list) -> dict:
                        recorded)
     check_frames(recorded, errs, "after concealment")
     return dict(cases=runs, after=after, launches=after["launches"] + sum(
-        r["launches"] for r in runs.values()))
+        r["launches"] for r in runs.values()),
+        intra_launches=after["intra_launches"] + sum(
+            r["intra_launches"] for r in runs.values()))
 
 
 def phase_cli() -> dict:
@@ -1765,18 +2022,21 @@ def itx_per_frame(recorded, label: str, verbose: bool, reps: int = 11
                 itx_call_ms=mean["call_ms"], itx_bound_ms=mean["bound_ms"])
 
 
-def phase_bench_configs(errs: list) -> dict:
+def phase_bench_configs(errs: list, werrs: list) -> dict:
     """13. The rest of bench.py's configurations: dense q27, max-density
     q22, all eight frames of tool-rich and SAO/ALF, SAO/ALF 1920x1080 and
     inter-LD 1920x1080, made by the background builders.  Per stream one
     decode, through a StreamDecoder with the stage profiler on, that
-    records the ITX kernel's inputs in host memory: the pinned MD5 (and
-    the 4-frame pin on an 8-frame stream's first 4 frames), an empty
-    census, one itx_frame_cuda launch per frame, the stage split, the
-    intra steps a frame, frames/s and the card's peak allocated memory.
-    The kernel is held to its plain version on every recorded frame and
-    timed (itx_per_frame) per frame on the PER_FRAME_ITX streams and over
-    all the tool-rich frames."""
+    records the ITX kernel's inputs and the intra wavefront's (of the
+    first picture, of every 1080p IDR picture) in host memory: the pinned
+    MD5 (and the 4-frame pin on an 8-frame stream's first 4 frames), an
+    empty census, one itx_frame_cuda launch per frame, one
+    intra_wavefront_cuda launch per picture with intra units, the stage
+    split, the intra steps a frame, frames/s and the card's peak
+    allocated memory.  The ITX kernel is held to its plain version on
+    every recorded frame and timed (itx_per_frame) per frame on the
+    PER_FRAME_ITX streams and over all the tool-rich frames; the intra
+    wavefront kernel on every recorded picture (check_wavefront)."""
     import torch
 
     from vvdec_tpu_torch.streams import (BENCH_STREAMS, PREFIXES, STREAMS,
@@ -1793,11 +2053,15 @@ def phase_bench_configs(errs: list) -> dict:
         print(f"[{name}] stream {w}x{h} x {n_frames} frames, {len(stream)} "
               f"bytes, made in {build_s:.1f} s in the background")
         recorded: list = []
+        # every picture of SAO/ALF 1080p is an IDR; inter-LD 1080p's first
+        wf = WavefrontLog(keep=n_frames if name == "SAO/ALF 1080p" else 1,
+                          host=True)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         res = timed_decode(stream, n_frames, md5_pin, name, size=(w, h),
                            recorded=recorded,
-                           prefix=prefix_pins.get(name), profile=True)
+                           prefix=prefix_pins.get(name), profile=True,
+                           wavefront=wf)
         peak = torch.cuda.max_memory_allocated()
         steps = res["stages_ms_per_frame"]["intra steps a frame"]
         print(f"[{name}] {steps:.1f} intra steps a frame; card memory: peak "
@@ -1812,9 +2076,12 @@ def phase_bench_configs(errs: list) -> dict:
         if name in PER_FRAME_ITX or name == "tool-rich 8":
             res.update(itx_per_frame(recorded, name,
                                      verbose=name in PER_FRAME_ITX))
+        del recorded
+        res.update(wavefront_checks(stream, n_frames, res[
+            "stages_ms_per_frame"], name, wf, werrs, plain_time=wf.keep))
         print(f"[{name}] the checks and times of the recorded frames took "
               f"{time.perf_counter() - t0:.1f} s")
-        del recorded
+        del wf
         torch.cuda.empty_cache()
         out[name] = res
     return out
@@ -1858,11 +2125,12 @@ def main(argv=None) -> int:
         timed("kernel", phase_kernel_vs_plain, errs_kernel)
         timed("stream builds", wait_bench_builds)
         errs += errs_kernel
-        main_path = timed("main", phase_main_path, errs)
-        lmcs = timed("LMCS", phase_lmcs, errs)
-        inter = timed("inter", phase_inter, errs)
-        ra = timed("RA", phase_ra, errs)
-        host = timed("host recon", phase_host_recon, errs)
+        werrs: list = []   # the intra wavefront kernel's comparisons
+        main_path = timed("main", phase_main_path, errs, werrs)
+        lmcs = timed("LMCS", phase_lmcs, errs, werrs)
+        inter = timed("inter", phase_inter, errs, werrs)
+        ra = timed("RA", phase_ra, errs, werrs)
+        host = timed("host recon", phase_host_recon, errs, werrs)
         main_path["profile"] = timed("profile", phase_device_busy)
         inter["profile P picture"] = timed("profile P", phase_inter_busy)
         surface = dict(api=timed("public surface: api", phase_api, errs),
@@ -1874,7 +2142,8 @@ def main(argv=None) -> int:
         batch_errs = list(errs_kernel)
         stages = timed("frame stages", phase_frame_stages, batch_errs)
         errs += batch_errs
-        bench = timed("bench configurations", phase_bench_configs, errs)
+        bench = timed("bench configurations", phase_bench_configs, errs,
+                      werrs)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1886,6 +2155,13 @@ def main(argv=None) -> int:
                                 inter["inter-LDB tools"], ra, host,
                                 surface["api"], surface["conceal"],
                                 multi, *bench.values()))
+    intra_launches = sum(
+        r["intra_launches"] for r in (main_path, lmcs, inter["inter-LD"],
+                                      inter["inter-LDB tools"], ra, host,
+                                      surface["api"], surface["conceal"],
+                                      *bench.values()))
+    # the headline's first picture, the one both versions were timed on
+    head = main_path["intra_kernel"][0]
     kernels = [dict(
         name="itx_frame", route="cuda", source="vvdec_tpu_torch/csrc/itx.cu",
         replaces="vvdec_tpu/ops/pallas/itx.py:96",
@@ -1900,7 +2176,13 @@ def main(argv=None) -> int:
         ms=stages["batch_ms"], plain_ms=stages["batch_plain_ms"],
         bound_ms=stages["batch_bound_ms"],
         bound_by=stages["batch_bound_by"], library_ms=None,
-        call_ms=stages["batch_call_ms"])]
+        call_ms=stages["batch_call_ms"]), dict(
+        name="intra_wavefront", route="cuda",
+        source="vvdec_tpu_torch/csrc/intra_wavefront.cu",
+        replaces="vvdec_tpu/ops/intra_device.py:823",
+        launches=intra_launches, max_abs_err=max(werrs),
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=None)]
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kernels=kernels, main_path=main_path,

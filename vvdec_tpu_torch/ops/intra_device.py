@@ -16,17 +16,20 @@ xFillReferenceSamples, IntraPrediction.cpp:1161) is value-independent,
 so the host compiles each unit into a 33-int descriptor row
 (`build_intra_descriptors`, copied from the reference as it stands) and
 groups rows into steps of independent units (`compute_unit_levels`,
-`build_wavefront_batches`).  The device then runs one Python loop
-iteration per step: gather the references of K units, predict, add the
-residual, and write the K blocks.  The JAX package's `lax.scan` +
-`lax.switch` become that loop with the mode class read from the host's
-numpy batches (no device->host sync per step); its `vmap` over K becomes
-a leading batch dimension; its one-hot float matmul gathers become
-integer indexing that returns 0 outside the source, as the one-hot
-product did; `lax.dynamic_slice` / `dynamic_update_slice` windows keep
-their start clamping (`_win_start`), and plain JAX gathers keep theirs
-(`_jidx`: a negative index wraps once, then the index is clamped).
-MIP's int32 matrix product becomes a multiply-and-sum.
+`build_wavefront_batches`).  On the card one launch of the hand-written
+kernel csrc/intra_wavefront.cu runs every step of a picture
+(`ops/cuda/intra.intra_wavefront_cuda`), as the JAX package's one
+`lax.scan` + `lax.switch` program a picture does; on the CPU its plain
+version (`intra_wavefront_ref`) runs one Python loop iteration per step:
+gather the references of K units, predict, add the residual, and write
+the K blocks, with the mode class read from the host's numpy batches.
+The helpers below are that plain version's: the JAX package's `vmap`
+over K becomes a leading batch dimension; its one-hot float matmul
+gathers become integer indexing that returns 0 outside the source, as
+the one-hot product did; `lax.dynamic_slice` / `dynamic_update_slice`
+windows keep their start clamping (`_win_start`), and plain JAX gathers
+keep theirs (`_jidx`: a negative index wraps once, then the index is
+clamped).  MIP's int32 matrix product becomes a multiply-and-sum.
 
 Bit-exact parity targets: IntraPrediction::predIntraAng
 (IntraPrediction.cpp:471), xFillReferenceSamples (:1161),
@@ -40,15 +43,15 @@ import functools
 import numpy as np
 import torch
 
+from vvdec_tpu_torch.ops.cuda.intra import (
+    const_tables,
+    intra_consts,
+    intra_wavefront_cuda,
+)
 from vvdec_tpu_torch.ops.tables import (
     ANG_TABLE,
-    CHROMA_FILTER,
-    GAUSS_FILTER,
     INTRA_FILTER_THRESH,
     INV_ANG_TABLE,
-    MIP_4x4,
-    MIP_8x8,
-    MIP_16x16,
 )
 from vvdec_tpu_torch.utils.trace import profiler
 
@@ -59,8 +62,9 @@ D = 33     # descriptor row width
 H_OFF = 64           # refext negative-side extent (max side length)
 RL2 = H_OFF + 128 + B + 4   # refext length: side ext + 2*64 main + taps
 WAVEFRONT_K = 8      # units per wavefront step (the reference's K)
-# profiler stage of a wavefront step, by mode class (host time: the
-# steps are launch-bound, and a per-step device sync would change that)
+# profiler stage of a sequential scan step, by mode class (host time:
+# the steps are launch-bound, and a per-step device sync would change
+# that)
 STEP_STAGES = ("intra step: planar", "intra step: DC",
                "intra step: angular", "intra step: MIP", "intra step: CCLM",
                "intra step: CIIP")
@@ -442,11 +446,10 @@ def left_of(side):
     return side[:, 1:B + 1, None]
 
 
-@functools.lru_cache(maxsize=None)
 def _mip_matrices(device):
-    """The three MIP matrix sets on `device`, made once."""
-    return tuple(torch.as_tensor(m, dtype=torch.int32, device=device)
-                 for m in (MIP_4x4, MIP_8x8, MIP_16x16))
+    """The three MIP matrix sets on `device`: views of intra_consts."""
+    t = const_tables(intra_consts(device))
+    return t["mip4"], t["mip8"], t["mip16"]
 
 
 def _pred_mip(top, left, d, bd: int, sids=(0, 1, 2)):
@@ -537,9 +540,9 @@ def _pred_mip(top, left, d, bd: int, sids=(0, 1, 2)):
 _CCLM_DIV = (0, 7, 6, 5, 5, 4, 4, 3, 3, 2, 2, 1, 1, 1, 1, 0)
 
 
-@functools.lru_cache(maxsize=None)
 def _cclm_div(device):
-    return torch.tensor(_CCLM_DIV, dtype=torch.int32, device=device)
+    """The CCLM division table on `device`: a view of intra_consts."""
+    return const_tables(intra_consts(device))["cclm_div"]
 
 
 def _pred_cclm(top, left, d, luma, bd: int, cfmt: int, collocated: bool,
@@ -728,101 +731,44 @@ def _block_index(d, hh: int, ww: int):
     return base + ys.long() * ww + xs.long()
 
 
-@functools.lru_cache(maxsize=None)
 def _angular_filters(device):
-    """The cubic and gauss interpolation filters on `device`, made once."""
-    return tuple(torch.as_tensor(f, dtype=torch.int32, device=device)
-                 for f in (CHROMA_FILTER, GAUSS_FILTER))
+    """The cubic and gauss interpolation filters on `device`: views of
+    intra_consts."""
+    t = const_tables(intra_consts(device))
+    return t["cubic"], t["gauss"]
 
 
 @functools.lru_cache(maxsize=None)
 def _intra_wavefront_fn(bd: int, cfmt: int, collocated: bool,
                         ctu_log2: int, K: int, has_lmcs: bool = False):
-    """Wavefront-batched intra chain: one loop iteration per dependency
-    step, each reconstructing up to K independent units at once (gather
-    -> predict -> residual add -> masked block write into a stacked
-    [3, H, W] plane, so a step can mix luma and chroma units).
+    """Wavefront-batched intra chain: every dependency step of a picture,
+    each reconstructing up to K independent units (gather -> predict ->
+    residual add -> masked block write into a stacked [3, H, W] plane,
+    so a step can mix luma and chroma units).
 
     run(planes, resis, batches, lm): planes / resis are 3 padded int32
-    tensors on one device; batches is the host's [S, K, D] numpy array
-    (its mode classes, MIP size ids, interpolation kinds and LMCS flags
-    pick what each step evaluates without a device sync); lm is the
-    build_lmcs_params table as an int32 tensor on that device, read only
-    with has_lmcs (then chroma residuals flagged in d[29] are scaled by
-    their VPDU's luma average).  Returns the 3 planes.  CCLM and the
-    LMCS scale read the luma plane as the earlier steps left it.  Units
-    inside one step never read each other's output, so the result is
-    bit-identical to a sequential scan."""
-    pel_max = (1 << bd) - 1
-    num_nb = min(64, 1 << ctu_log2)
-
-    def step(buf, P, Rf, hb, db, mc, lm):
-        """One wavefront step: gather, predict, add the residual, write.
-        hb is the step's host copy of the K descriptor rows, db the
-        device one; P the stacked planes viewed from buf, whose last
-        element takes the masked-out writes."""
-        dev = P.device
-        top, left = _gather_refs(P, db, bd)
-        if mc == 0:
-            blk = _pred_planar(top, left, db)
-        elif mc == 1:
-            blk = _pred_dc(top, left, db)
-        elif mc == 2:
-            kinds = set(np.clip(hb[:, 26], 0, 3).tolist())
-            cf, gf = _angular_filters(dev)
-            blk = _pred_angular(top, left, db, pel_max, cf, gf, kinds)
-        elif mc == 3:
-            valid = hb[hb[:, 28] == 1]
-            sids = sorted(set(np.clip(valid[:, 26], 0, 2).tolist()))
-            blk = _pred_mip(top, left, db, bd, sids)
-        elif mc == 4:
-            blk = _pred_cclm(top, left, db, P[0], bd, cfmt, collocated,
-                             ctu_log2)
-        else:
-            blk = _pred_planar(top, left, db)
-        if mc in (0, 1, 5):
-            blk = torch.where(_col(db, 27) == 1,
-                              _pdpc_dc_planar(blk, top, left, db), blk)
-        idx = _block_index(db, P.shape[1], P.shape[2])
-        if mc == 5:
-            # CIIP (predBlendIntraCiip, IntraPrediction.cpp:884): planar
-            # blended with the raw inter prediction in the plane
-            cur = P.reshape(-1)[idx]
-            blk = (_col(db, 25) * cur + _col(db, 24) * blk + 2) >> 2
-        r = Rf[idx]
-        if has_lmcs and (hb[:, 29] & 1).any():
-            scale = _chroma_scale_dev(P[0], db, lm, bd, num_nb)
-            r = torch.where((_col(db, 29) & 1) == 1,
-                            _scale_signal_dev(r, scale[:, None, None], bd), r)
-        cbf = _col(db, 9) == 1
-        out = torch.clamp(blk + torch.where(cbf, r, torch.zeros_like(r)), 0,
-                          pel_max)
-        ys, xs = _grid(dev)
-        m = (ys < _col(db, 4)) & (xs < _col(db, 3)) & (_col(db, 28) == 1)
-        buf.index_put_((torch.where(m, idx, buf.numel() - 1),), out)
+    tensors on one device; batches is the host's [S, K, D] numpy array;
+    lm is the build_lmcs_params table as an int32 tensor on that device,
+    read only with has_lmcs (then chroma residuals flagged in d[29] are
+    scaled by their VPDU's luma average).  Returns the 3 planes.  The
+    steps run in intra_wavefront_cuda: one kernel launch on a CUDA
+    device, the plain loop on the CPU.  CCLM and the LMCS scale read the
+    luma plane as the earlier steps left it.  Units inside one step
+    never read each other's output, so the result is bit-identical to a
+    sequential scan."""
 
     def run(planes, resis, batches, lm=None):
-        batches = np.asarray(batches)
         dev = planes[0].device
         hh = max(max(p.shape[0] for p in planes), RL)
         ww = max(max(p.shape[1] for p in planes), RL)
-        # one trailing scratch element takes the writes of masked-out
-        # window positions, so the K block writes never collide
-        buf = torch.zeros(3 * hh * ww + 1, dtype=torch.int32, device=dev)
-        P = buf[:-1].view(3, hh, ww)
+        P = torch.zeros((3, hh, ww), dtype=torch.int32, device=dev)
         R = torch.zeros((3, hh, ww), dtype=torch.int32, device=dev)
         for c in range(3):
             P[c, :planes[c].shape[0], :planes[c].shape[1]] = planes[c]
             R[c, :resis[c].shape[0], :resis[c].shape[1]] = resis[c]
-        bt = torch.as_tensor(batches, dtype=torch.int32, device=dev)
-        Rf = R.reshape(-1)
-        for s in range(batches.shape[0]):
-            mc = int(batches[s, 0, 7])
-            if not 0 <= mc < len(STEP_STAGES):
-                raise NotImplementedError(
-                    f"intra wavefront: mode class {mc} is not ported")
-            with profiler.stage(STEP_STAGES[mc]):
-                step(buf, P, Rf, batches[s], bt[s], mc, lm)
+        intra_wavefront_cuda(P, R, batches, intra_consts(dev), lm, bd=bd,
+                             cfmt=cfmt, collocated=collocated,
+                             ctu_log2=ctu_log2, K=K, has_lmcs=has_lmcs)
         return tuple(P[c, :planes[c].shape[0], :planes[c].shape[1]]
                      for c in range(3))
 
