@@ -9,7 +9,8 @@ result line:
 1. the card: torch / CUDA versions and the card's name and power limit;
 2. the build: nvcc compiles every kernel of the decode path from
    vvdec_tpu_torch/csrc/ into build/kernels/ (itx.cu and
-   intra_wavefront.cu, one nvcc each, started together);
+   intra_wavefront.cu, one nvcc each, started together), and prints
+   each kernel's registers and spills as -Xptxas -v reports them;
 3. each kernel against its plain PyTorch version on the card, bit-equal,
    with its time, the plain version's time and its bound per shape,
    through the one-group wrapper itx_batch_cuda;
@@ -26,9 +27,12 @@ result line:
    frames' TUs, the stage split of a profiled decode is printed with the
    intra steps a frame by mode class, and the intra wavefront kernel is
    held to intra_wavefront_ref on every frame's recorded inputs (the
-   planes before the scan, residuals, step batches, LMCS table), with
-   per picture the kernel's device time, the plain version's (frame 0),
-   the bound, the steps and the dependency levels;
+   planes before the scan, residuals, step batches and step levels, LMCS
+   table), with per picture the kernel's device time and us a phase, its
+   empty-phase floor (the same phases with every unit masked), the plain
+   version's (frame 0), the bound, the steps, the dependency levels and
+   the phases; frame 0 also runs at every cluster size (1, 2, 4, 8, 16),
+   each bit-equal, with its time and floor;
 5. intra LMCS: the intra LMCS stream (chroma residual scaling; 2
    frames, 832x480, made by the port's own test encoder,
    vvdec_tpu_torch/streams.py): a warm-up decode that records the ITX
@@ -119,7 +123,8 @@ result line:
    the stage split, intra steps a frame, frames/s and the card's peak
    allocated memory.  The ITX kernel is held to its plain version on
    every recorded frame, the intra wavefront kernel on the first picture
-   and on every 1080p IDR picture; on the max-density and 1080p frames
+   and on every 1080p IDR picture (the first SAO/ALF 1080p one also at
+   every cluster size); on the max-density and 1080p frames
    the ITX kernel prints per
    frame the kernel's device ms (torch.profiler, as for the headline,
    over a trace of 300 launches of the frame: short traces lose most of
@@ -156,7 +161,8 @@ of the timed decodes of phases 4-8 and 13 and of phase 10's decodes,
 max_abs_err covers every comparison with intra_wavefront_ref, and ms,
 plain_ms and bound_ms are the headline's first picture's: the kernel's
 device time (torch.profiler, 100 launches), the plain version's (one
-run) and the bytes it must move (wavefront_work) over HBM_BYTES_PER_S.
+run) and the bytes it must move (wavefront_work) over HBM_BYTES_PER_S;
+floor_ms is its empty-phase floor's device time and phases its phases.
 Needs a CUDA device; imports neither JAX nor the JAX package.
 """
 
@@ -326,8 +332,8 @@ def phase_build() -> None:
     together; then each library is loaded."""
     import concurrent.futures
 
-    from vvdec_tpu_torch.ops.cuda._build import (build_kernel, library_path,
-                                                 load_kernel)
+    from vvdec_tpu_torch.ops.cuda._build import (build_kernel, build_log,
+                                                 library_path, load_kernel)
 
     def build(name):
         cached = os.path.exists(library_path(name))
@@ -343,6 +349,10 @@ def phase_build() -> None:
         print(f"[build] csrc/{name}.cu -> "
               f"{os.path.relpath(library_path(name))} "
               f"{'(already built) ' if cached else ''}in {dt:.2f} s")
+        # ptxas -v: each kernel's registers, stack and spills
+        for line in build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build]   {name}: {line.strip()}")
     print(f"[build] {len(KERNELS)} kernels in "
           f"{time.perf_counter() - t0:.2f} s")
 
@@ -780,20 +790,85 @@ def run_wavefront(fn, rec, buf):
               None if lm is None else lm.to(dev), **rec["kw"])
 
 
+def planned_launch(rec, buf, cluster: int, masked: bool = False):
+    """A function of no arguments that launches the kernel over one
+    recorded picture's plan for a cluster of `cluster` blocks (made and
+    uploaded once, here) in place on buf, uncounted (launch_plan); with
+    `masked`, the empty-phase floor: the same phases, barriers and
+    descriptor loads, every unit masked.  Also returns the phase count."""
+    import torch
+
+    from vvdec_tpu_torch.ops.cuda.intra import (intra_consts, launch_plan,
+                                                wavefront_phases,
+                                                wavefront_plan)
+    dev = torch.device("cuda")
+    kw = dict(rec["kw"])
+    levels = kw.pop("levels", None)
+    kw.pop("K")
+    phases = wavefront_phases(rec["batches"], levels, buf.shape[1],
+                              buf.shape[2])
+    plan = torch.as_tensor(wavefront_plan(rec["batches"], phases, cluster,
+                                          masked), device=dev)
+    resi, lm = rec["resi"].to(dev), rec["lm"]
+    lm = None if lm is None else lm.to(dev)
+    consts = intra_consts(dev)
+
+    def run():
+        err = launch_plan(buf, resi, plan, len(phases) - 1, consts, lm,
+                          cluster=cluster, **kw)
+        fail_unless(err == 0, f"intra_wavefront launch failed: cudaError "
+                    f"{err} on a cluster of {cluster}")
+
+    return run, len(phases) - 1
+
+
+def cluster_sweep(rec, label: str, picture: int) -> dict:
+    """One recorded picture's kernel at every cluster size the kernel
+    takes: each over the same phases, bit-equal to the wrapper's result,
+    with its device time and its empty-phase floor's (CUDA events over 20
+    back-to-back planned launches; the plan made and uploaded before)."""
+    import torch
+
+    from vvdec_tpu_torch.ops.cuda.intra import (CLUSTER, CLUSTER_SIZES,
+                                                intra_wavefront_cuda)
+    buf0 = rec["buf"].cuda()
+    want = run_wavefront(intra_wavefront_cuda, rec, buf0.clone())
+    out = {}
+    for cluster in CLUSTER_SIZES:
+        got = buf0.clone()
+        run, n_ph = planned_launch(rec, got, cluster)
+        run()
+        torch.cuda.synchronize()
+        fail_unless(torch.equal(got, want), f"{label}: picture {picture} on "
+                    f"a cluster of {cluster} differs from the wrapper's")
+        k_ms = cuda_ms(run, 20)
+        f_ms = cuda_ms(planned_launch(rec, got, cluster, masked=True)[0], 20)
+        out[cluster] = dict(ms=k_ms, floor_ms=f_ms)
+        print(f"[{label}] picture {picture} on a cluster of {cluster:2d}"
+              f"{' (the default)' if cluster == CLUSTER else ''}: "
+              f"{k_ms:.4f} ms ({k_ms / n_ph * 1e3:.2f} us a phase), "
+              f"empty-phase floor {f_ms:.4f} ms ({f_ms / n_ph * 1e3:.2f} us "
+              f"a phase); bit-equal")
+    return out
+
+
 def check_wavefront(recorded, errs: list, label: str, schedule: list,
-                    plain_time: int = 1) -> list:
+                    plain_time: int = 1, sweep: int = 0) -> list:
     """The intra wavefront kernel against its plain version on every
     recorded picture, bit-equal over the three planes, and each
     picture's device times (torch.profiler): the kernel over 100
-    launches (device_ms), the plain version (~300 small kernels a step)
-    over one run (trace_device_ms) on the first `plain_time` pictures;
-    the bound (wavefront_work over
-    HBM_BYTES_PER_S), the steps and, from `schedule`
+    launches (device_ms), its empty-phase floor over 100 (the same
+    phases with every unit masked: the barriers and descriptor loads
+    alone), the plain version over one run (trace_device_ms) on the
+    first `plain_time` pictures; the bound (wavefront_work over
+    HBM_BYTES_PER_S), the steps, the phases and, from `schedule`
     (wavefront_schedule's pictures with intra units, in decode order),
-    the dependency levels and units.  Returns a dict per picture."""
+    the dependency levels and units; on the first `sweep` pictures the
+    kernel at every cluster size (cluster_sweep).  Returns a dict per
+    picture."""
     import torch
 
-    from vvdec_tpu_torch.ops.cuda.intra import (intra_wavefront_cuda,
+    from vvdec_tpu_torch.ops.cuda.intra import (CLUSTER, intra_wavefront_cuda,
                                                 intra_wavefront_ref)
     out = []
     for i, rec in enumerate(recorded):
@@ -809,22 +884,31 @@ def check_wavefront(recorded, errs: list, label: str, schedule: list,
         k_ms = device_ms(lambda: run_wavefront(intra_wavefront_cuda, rec,
                                                scratch), 100,
                          "intra_wavefront_kernel", launches=1)
+        floor, phases = planned_launch(rec, scratch, CLUSTER, masked=True)
+        f_ms = device_ms(floor, 100, "intra_wavefront_kernel", launches=1)
         p_ms = trace_device_ms(lambda: run_wavefront(
             intra_wavefront_ref, rec, scratch)) if i < plain_time else None
         steps = rec["batches"].shape[0]
         sched = schedule[i]
         fail_unless(sched["steps"] == steps, f"{label}: picture {i} has "
                     f"{steps} steps, the host planner {sched['steps']}")
+        fail_unless(sched["phases"] == phases, f"{label}: picture {i} has "
+                    f"{phases} phases, the host planner {sched['phases']}")
         b_ms = wavefront_work(rec["batches"], rec["kw"]["has_lmcs"]) \
             / HBM_BYTES_PER_S * 1e3
         print(f"[{label}] intra_wavefront picture {sched['picture']}: "
-              f"{steps} steps, {sched['levels']} levels, {sched['units']} "
-              f"units; device time kernel {k_ms:.4f} ms ("
-              f"{k_ms / steps * 1e3:.2f} us a step), plain "
+              f"{steps} steps, {sched['levels']} levels, {phases} phases, "
+              f"{sched['units']} units; device time kernel {k_ms:.4f} ms ("
+              f"{k_ms / phases * 1e3:.2f} us a phase), empty-phase floor "
+              f"{f_ms:.4f} ms ({f_ms / phases * 1e3:.2f} us a phase), plain "
               + ("not measured" if p_ms is None else f"{p_ms:.3f} ms")
               + f"; bound {b_ms:.6f} ms (bytes); bit-equal")
-        out.append(dict(sched, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                        bound_by="bytes"))
+        pic = dict(sched, ms=k_ms, floor_ms=f_ms, plain_ms=p_ms,
+                   bound_ms=b_ms, bound_by="bytes",
+                   us_per_phase=k_ms / phases * 1e3)
+        if i < sweep:
+            pic["clusters"] = cluster_sweep(rec, label, sched["picture"])
+        out.append(pic)
         del buf0, got, want, scratch
     return out
 
@@ -905,11 +989,14 @@ def phase_main_path(errs: list, werrs: list) -> dict:
     shapes = phase_shape_groups(recorded, rows, n_frames)
     stages = timed_decode(stream, n_frames, HEADLINE_MD5, "main",
                           profile=True)["stages_ms_per_frame"]
-    wave = wavefront_checks(stream, n_frames, stages, "main", wf, werrs)
+    wave = wavefront_checks(stream, n_frames, stages, "main", wf, werrs,
+                            sweep=1)
     pics = wave["intra_kernel"]
     print(f"[main] intra_wavefront per frame (mean of {len(pics)}): "
           f"{res['intra_launches'] / n_frames:.2f} launches; device time "
-          f"kernel {sum(p['ms'] for p in pics) / len(pics):.4f} ms; bound "
+          f"kernel {sum(p['ms'] for p in pics) / len(pics):.4f} ms, "
+          f"empty-phase floor "
+          f"{sum(p['floor_ms'] for p in pics) / len(pics):.4f} ms; bound "
           f"{sum(p['bound_ms'] for p in pics) / len(pics):.6f} ms (bytes); "
           f"plain version on picture 0 {pics[0]['plain_ms']:.3f} ms")
     return dict(res, launches_per_frame=res["launches"] / n_frames,
@@ -1022,11 +1109,13 @@ def wavefront_schedule(stream: bytes, n_frames: int, stages: dict,
     steps and levels."""
     from vvdec_tpu_torch.decoder import parse_annexb
     from vvdec_tpu_torch.frame.structure import MODE_INTRA
+    from vvdec_tpu_torch.ops.cuda.intra import wavefront_phases
     from vvdec_tpu_torch.ops.frame_device import _lmcs_on
-    from vvdec_tpu_torch.ops.intra_device import (WAVEFRONT_K,
+    from vvdec_tpu_torch.ops.intra_device import (PB, RL, WAVEFRONT_K,
                                                   build_intra_descriptors,
                                                   build_wavefront_batches,
-                                                  compute_unit_levels)
+                                                  compute_unit_levels,
+                                                  wavefront_step_levels)
     pictures = []
     for i, f in enumerate(parse_annexb(stream)):
         if _lmcs_on(f.cs) and any(cu.pred_mode != MODE_INTRA
@@ -1036,23 +1125,29 @@ def wavefront_schedule(stream: bytes, n_frames: int, stages: dict,
         if reason is not None or desc.shape[0] == 0:
             continue
         lvl = compute_unit_levels(desc, f.cs.sps.chroma_format_idc)
+        batches = build_wavefront_batches(desc, lvl, WAVEFRONT_K)
+        phases = wavefront_phases(
+            batches, wavefront_step_levels(desc, lvl, WAVEFRONT_K),
+            max(f.cs.h + PB, RL), max(f.cs.w + PB, RL))
         pictures.append(dict(
             picture=i, units=desc.shape[0], levels=int(lvl.max()),
-            steps=build_wavefront_batches(desc, lvl, WAVEFRONT_K).shape[0]))
-    units, steps, levels = (sum(p[k] for p in pictures)
-                            for k in ("units", "steps", "levels"))
-    per_step = stages.get("intra", 0.0) * n_frames / max(steps, 1)
+            steps=batches.shape[0], phases=len(phases) - 1))
+    units, steps, levels, phases = (sum(p[k] for p in pictures) for k in
+                                    ("units", "steps", "levels", "phases"))
+    kernel = stages.get("intra: kernel", 0.0) * n_frames
     print(f"[{label}] intra wavefront: {units / n_frames:.1f} units, "
-          f"{steps / n_frames:.1f} steps and {levels / n_frames:.1f} "
-          f"dependency levels per frame, {per_step:.4f} ms of the intra "
-          f"stage per step")
+          f"{steps / n_frames:.1f} steps, {levels / n_frames:.1f} "
+          f"dependency levels and {phases / n_frames:.1f} phases per frame;"
+          f" {kernel / max(phases, 1) * 1e3:.2f} us of the \"intra: "
+          f"kernel\" stage (launch and wait) per phase")
     return dict(intra_units=units / n_frames, intra_steps=steps / n_frames,
-                intra_levels=levels / n_frames, intra_pictures=pictures)
+                intra_levels=levels / n_frames,
+                intra_phases=phases / n_frames, intra_pictures=pictures)
 
 
 def wavefront_checks(stream: bytes, n_frames: int, stages: dict,
                      label: str, log: WavefrontLog, werrs: list,
-                     plain_time: int = 1) -> dict:
+                     plain_time: int = 1, sweep: int = 0) -> dict:
     """wavefront_schedule of the stream, then check_wavefront on the
     pictures `log` recorded (the first ones with intra units)."""
     sched = wavefront_schedule(stream, n_frames, stages, label)
@@ -1062,7 +1157,8 @@ def wavefront_checks(stream: bytes, n_frames: int, stages: dict,
     fail_unless(len(log.recorded) == min(log.keep, log.pictures),
                 f"{label}: {len(log.recorded)} wavefront inputs recorded")
     return dict(sched, intra_kernel=check_wavefront(
-        log.recorded, werrs, label, sched["intra_pictures"], plain_time))
+        log.recorded, werrs, label, sched["intra_pictures"], plain_time,
+        sweep))
 
 
 def phase_ra(errs: list, werrs: list) -> dict:
@@ -2078,7 +2174,8 @@ def phase_bench_configs(errs: list, werrs: list) -> dict:
                                      verbose=name in PER_FRAME_ITX))
         del recorded
         res.update(wavefront_checks(stream, n_frames, res[
-            "stages_ms_per_frame"], name, wf, werrs, plain_time=wf.keep))
+            "stages_ms_per_frame"], name, wf, werrs, plain_time=wf.keep,
+            sweep=int(name == "SAO/ALF 1080p")))
         print(f"[{name}] the checks and times of the recorded frames took "
               f"{time.perf_counter() - t0:.1f} s")
         del wf
@@ -2182,7 +2279,8 @@ def main(argv=None) -> int:
         replaces="vvdec_tpu/ops/intra_device.py:823",
         launches=intra_launches, max_abs_err=max(werrs),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=None)]
+        bound_by=head["bound_by"], library_ms=None,
+        floor_ms=head["floor_ms"], phases=head["phases"])]
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kernels=kernels, main_path=main_path,

@@ -1,57 +1,88 @@
-// The intra wavefront of one picture in one launch: every step of the
-// host's [S, K, D] batches, in order, each reconstructing up to K units
-// that do not read each other's output.
+// The intra wavefront of one picture in one launch of one thread-block
+// cluster: one phase a dependency level, the phase's units spread over
+// the cluster's blocks, one cluster barrier between phases.
 //
 // Replaces vvdec_tpu/ops/intra_device.py::_intra_wavefront_fn (:823), a
-// jax.jit program a picture: a lax.scan over the steps (:935), a
-// lax.switch on the step's mode class (:905) and a lax.fori_loop over the
-// K masked block writes (:933).  It has no pallas_call; the port ran it as
-// a Python loop of about 300 eager PyTorch ops a step.  Per step and unit
-// (descriptor row d, layout in ops/intra_device.py):
+// jax.jit program a picture: a lax.scan over the host's [S, K, D] steps
+// (:935), a lax.switch on the step's mode class (:905) and a
+// lax.fori_loop over the K masked block writes (:933).  It has no
+// pallas_call.  Per unit (descriptor row d, layout in
+// ops/intra_device.py):
 //   gather:   the top / left reference runs (RL samples from 2-row and
 //             2-column windows with clamped starts; an index the clamp
 //             pushes out of the window reads 0; 1 << (bd-1) when no
 //             reference is available), [1 2 1]-smoothed where d[8];
-//   predict:  by the step's mode class d[7] of row 0: planar, DC,
-//             angular (cubic / gauss / chroma 2-tap filters, the side
-//             projection, both PDPC forms, the transpose of horizontal
-//             modes), MIP (Haar downsample, the int32 matrix product,
-//             transpose, linear upsampling), CCLM (template sampling off
-//             the luma plane, the min/max fit, the division table) or
-//             CIIP (planar blended with the inter prediction in the
-//             plane); PDPC of planar / DC / CIIP where d[27];
+//   predict:  by the unit's own mode class d[7]: planar, DC, angular
+//             (cubic / gauss / chroma 2-tap filters, the side projection,
+//             both PDPC forms, the transpose of horizontal modes), MIP
+//             (Haar downsample, the int32 matrix product, transpose,
+//             linear upsampling), CCLM (template sampling off the luma
+//             plane, the min/max fit, the division table) or CIIP (planar
+//             blended with the inter prediction in the plane); PDPC of
+//             planar / DC / CIIP where d[27];
 //   residual: the LMCS chroma residual scale where d[29] & 1 (the
 //             average of the luma left of and above the unit's VPDU),
 //             added where d[9], clipped to [0, 2^bd - 1];
 //   write:    the unit's h x w corner of its 64 x 64 window (start
 //             clamped as lax.dynamic_update_slice clamps it) of the
-//             stacked [3, hh, ww] int32 planes, where d[28].
+//             stacked [3, hh, ww] int32 planes.
 // Integer semantics follow the plain version (ops/cuda/intra.py
 // intra_wavefront_ref): floor shifts, clamps as min(max(v, lo), hi).
 //
-// What bounds it on an H100: not the bytes (a 1080p intra frame moves
-// tens of megabytes at most, microseconds at 3.35 TB/s) but the chain of
-// steps: each step reads what the one before wrote, so the steps run one
-// after another, and a step's time is the latency of its dependent global
-// reads (references, luma, residuals), its barriers and its writes.
+// What bounds it on an H100: not the bytes (a 1080p intra frame moves a
+// few megabytes, microseconds at 3.35 TB/s) but the dependency levels
+// times the time one phase takes.  Each level reads what the levels
+// before wrote, so the phases run one after another, and a phase costs
+// its barriers (the cluster's and a chunk's block barriers: the
+// empty-phase floor, about 1.4 us of a 3.5-4.5 us phase, PERF.md) and
+// the latency of its dependent reads (references, the set-up's luma,
+// each sample's residual), which the design overlaps.
 //
-// Design (simple and right first; speed is later work):
-// - One thread block walks all S steps (the scan becomes a loop inside
-//   the block, so no launch, host round trip or grid barrier per step).
-// - Reads before writes: every read of a step (references, CCLM's luma,
-//   the LMCS scale's luma, CIIP's inter prediction) happens before any
-//   write of that step, as in the plain version, whose one index_put_
-//   follows all its reads.  Each step: load the K rows; gather the raw
-//   references; smooth; per-unit set-up by one warp a unit (DC sum, MIP
-//   boundary and matrix product, CCLM parameters, LMCS scale); every
-//   output sample of the step's units into shared memory (uint16,
-//   K x 64 x 64 at most, only the h x w corners are computed); barrier;
-//   the writes; barrier.
-// - Where two units of a step overlap (never in a conformant picture),
-//   the later row wins, as the reference's fori_loop writes in row order.
+// Design:
+// - The host (ops/cuda/intra.py wavefront_phases, wavefront_plan) cuts
+//   the steps into phases: consecutive steps of one level, split where
+//   two units of one component would write the same sample (the later
+//   row then starts a phase, so it still wins).  It cuts each unit into
+//   slices of whole rows of at most 1024 samples (a plan row holds its
+//   rows ys to ye in the pad field d[32]), deals each phase's slices,
+//   heaviest first, over the cluster's blocks in snake order, so no
+//   block has more than a slice of samples over another, and packs each
+//   block's share into chunk records of up to kU rows, in phase order,
+//   one after another, each as long as its rows.
+//   A slice gathers its unit's references and repeats its set-up.
+// - One cluster of 1-16 blocks (cudaLaunchKernelEx with a cluster
+//   dimension; above 8 the non-portable size; 16 by default, whose empty
+//   phase costs what 8's does, PERF.md).  A block walks its own
+//   records; between phases every block passes
+//   barrier.cluster.arrive.release / wait.acquire, which orders one
+//   phase's global writes before the next phase's reads on every SM of
+//   the cluster.  Plane reads bypass L1 (ld.global.cg), so no SM reads a
+//   stale line.
+// - Inside a phase the kernel rests on the level property: no unit reads
+//   a sample another unit of its phase writes (the CPU tests check it on
+//   every case and stream).  Each unit reads its references before its
+//   own writes; samples are written straight to the planes.  Planes so
+//   small that a unit's window is moved off their edge (never the
+//   decoder's, padded by 64) void the property: the host then makes each
+//   step a phase and launches one block `staged`, every sample of a
+//   chunk into shared memory before any write, as the reference's step.
+// - The next record is copied into shared memory with cp.async while
+//   the current one runs.  Per chunk: references gathered and smoothed
+//   in one pass (each thread reads the three raw samples it smooths);
+//   per-unit set-up by one warp a unit, in lanes (DC sums and MIP's
+//   boundary groups by warp reductions, CCLM's four template points in
+//   eight lanes with the luma rows and columns normalised once a sample,
+//   the LMCS scale in a second warp); then every sample, each thread
+//   finding its row by a branch-free select over the chunk's offsets in
+//   its registers.  A block arrives at the cluster barrier, reads its
+//   first two samples' residuals (no plane), then waits; CCLM's luma
+//   (template and samples) and the LMCS sums are read next, before the
+//   references, so the latencies overlap and the set-up reads shared
+//   memory only.  The set-up and its barrier are skipped for chunks of
+//   planar / angular units.
 // - The constant tables (ops/cuda/intra.py intra_consts: the cubic and
 //   gauss filters, MIP_4x4 / 8x8 / 16x16, the CCLM division table) are
-//   copied into shared memory once.
+//   copied into each block's shared memory once.
 
 #include <cuda_runtime.h>
 
@@ -66,8 +97,13 @@ constexpr int kHOff = 64;                  // refext negative extent
 constexpr int kRL2 = kHOff + 128 + kB + 4; // refext length
 constexpr int kNext = 128 + kB + 1;        // PDPC side extension length
 constexpr int kPB = 64;                    // plane bottom / right padding
-constexpr int kMaxK = 8;                   // units a step
+constexpr int kU = 8;                      // rows a chunk record holds
+constexpr int kRow = 36;                   // a plan row: d and 3 pad ints
+constexpr int kRec = 4 + kU * kRow;        // record: phase, n, 2 pad, rows
+constexpr int kHead = 20;                  // plan ints before the records
+constexpr int kMaxCluster = 16;
 constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
 constexpr int kLmLen = 69;
 // the constant pool (ops/cuda/intra.py CONST_TABLES)
 constexpr int kCubic = 0;      // [32][4]
@@ -77,6 +113,12 @@ constexpr int kMip8 = 1280;    // [8][16][8]
 constexpr int kMip16 = 2304;   // [6][64][7]
 constexpr int kDiv = 4992;     // [16]
 constexpr int kConstLen = 5008;
+constexpr unsigned kFull = 0xffffffffu;
+
+static_assert(kRow % 4 == 0, "records are copied in 16-byte pieces");
+static_assert(kRow > kD, "a plan row holds a descriptor row");
+static_assert(kHead % 4 == 0 && kHead > kMaxCluster, "plan head");
+static_assert(2 * kU <= kWarps, "a set-up warp and an LMCS warp a unit");
 
 // CCLM luma downsampling taps by chroma format: 4:2:0 (and 4:0:0), 4:2:2,
 // 4:4:4; t3 (first CTU row: coef x3, rnd, shift), t5 (collocated: coef
@@ -92,25 +134,22 @@ __constant__ int kT6[3][8] = {{2, 1, 1, 2, 1, 1, 4, 3},
 struct Params {
   int* planes;          // [3, hh, ww], updated in place
   const int* resi;      // [3, hh, ww]
-  const int* batches;   // [S, K, kD]
+  const int* plan;      // [kHead] each block's records' offsets, records
   const int* consts;    // [kConstLen]
   const int* lm;        // [kLmLen] or null without LMCS
-  int S, K, hh, ww, bd, cfmt, collocated, ctu_log2, has_lmcs;
+  int n_phases, hh, ww, bd, cfmt, collocated, ctu_log2, has_lmcs, staged;
 };
 
 struct Shared {
-  int d[kMaxK][kD];
-  int raw_t[kMaxK][kRL];
-  int raw_l[kMaxK][kRL];
-  int top[kMaxK][kRL];
-  int left[kMaxK][kRL];
-  int mip[kMaxK][64];     // MIP's 8 x 8 reduced prediction, transposed
-  int red[kMaxK][16];     // per-unit partial results of the set-up warp
-  int scal[kMaxK][4];     // DC value / CCLM a, b, shift / LMCS scale (3)
-  int off[kMaxK + 1];     // first output sample of each unit
+  int rec[2][kRec];       // this chunk's record, and the next one in flight
+                          // (kRec ints from its start: all of it and more)
+  int top[kU][kRL];
+  int left[kU][kRL];
+  int mip[kU][64];        // MIP's 8 x 8 reduced prediction, transposed
+  int scal[kU][4];        // DC value / CCLM a, b, shift / LMCS scale (3)
   int consts[kConstLen];
   int lm[kLmLen + 3];
-  uint16_t out[kMaxK * kB * kB];
+  // staged launches: then kU x kB x kB uint16 output samples follow
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -140,30 +179,100 @@ __device__ __forceinline__ int take(const int* arr, int idx) {
   return (idx >= 0 && idx < kRL) ? arr[idx] : 0;
 }
 
-__device__ __forceinline__ bool valid(const Shared& sm, const Params& p,
-                                      int k) {
-  return k < p.K && sm.d[k][28] == 1;
+// a plane sample another SM may have written before the last cluster
+// barrier: read at L2, past this SM's L1
+__device__ __forceinline__ int ldp(const int* a) { return __ldcg(a); }
+
+// ------------------------------------------------- cluster and copies
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// the cluster barrier, every thread of every block of the cluster: the
+// arrival releases this block's writes of the phase, the wait acquires
+// every block's
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// the kRec ints from a record's start (the record, and maybe some of the
+// next) into shared memory, 16 bytes a thread, without waiting
+__device__ __forceinline__ void copy_record(int* dst, const int* src,
+                                            int tid) {
+  for (int i = tid; i < kRec / 4; i += kThreads) {
+    const unsigned s =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst + 4 * i));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+                 "l"(src + 4 * i)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
 // ---------------------------------------------------------------- refs
-// raw reference sample j of unit d (before smoothing): _gather_refs
-__device__ void raw_refs(const Params& p, const int* d, int j, int* top,
-                         int* left) {
-  const int hp = p.hh, wp = p.ww;
-  const int* P = p.planes + static_cast<size_t>(clampi(d[0], 0, 2)) * hp * wp;
-  const int rt0 = clampi(min(d[11], d[12]), 0, hp - 2);
-  const int ct0 = clampi(d[15], 0, wp - kRL);
+// raw top / left reference sample j of unit d in its plane P (before
+// smoothing): _gather_refs
+__device__ __forceinline__ int raw_top(const Params& p, const int* d,
+                                       const int* P, int j) {
+  const int rt0 = clampi(min(d[11], d[12]), 0, p.hh - 2);
+  const int ct0 = clampi(d[15], 0, p.ww - kRL);
   const int row = j < d[13] ? rt0 + (d[11] != rt0) : rt0 + (d[12] != rt0);
   const int jt = clampi(d[14] + j, d[15], d[16]) - ct0;
-  int t = (jt >= 0 && jt < kRL) ? P[static_cast<size_t>(row) * wp + ct0 + jt]
-                                : 0;
-  const int rl0 = clampi(d[21], 0, hp - kRL);
-  const int cl0 = clampi(min(d[17], d[18]), 0, wp - 2);
+  return (jt >= 0 && jt < kRL)
+             ? ldp(P + static_cast<size_t>(row) * p.ww + ct0 + jt) : 0;
+}
+
+__device__ __forceinline__ int raw_left(const Params& p, const int* d,
+                                        const int* P, int j) {
+  const int rl0 = clampi(d[21], 0, p.hh - kRL);
+  const int cl0 = clampi(min(d[17], d[18]), 0, p.ww - 2);
   const int col = j < d[19] ? cl0 + (d[17] != cl0) : cl0 + (d[18] != cl0);
   const int jl = clampi(d[20] + j, d[21], d[22]) - rl0;
-  int l = (jl >= 0 && jl < kRL)
-              ? P[static_cast<size_t>(rl0 + jl) * wp + col] : 0;
-  if (d[10] == 1) t = l = 1 << (p.bd - 1);
+  return (jl >= 0 && jl < kRL)
+             ? ldp(P + static_cast<size_t>(rl0 + jl) * p.ww + col) : 0;
+}
+
+// smoothed top and left reference j of unit d: the three raw samples
+// the [1 2 1] filter reads (interior only, a shared filtered corner)
+__device__ void gather_ref(const Params& p, const int* d, int j, int* top,
+                           int* left) {
+  if (d[10] == 1) {
+    // no reference: a constant, which smoothing leaves as it is
+    *top = *left = 1 << (p.bd - 1);
+    return;
+  }
+  const int* P = p.planes +
+                 static_cast<size_t>(clampi(d[0], 0, 2)) * p.hh * p.ww;
+  int t = raw_top(p, d, P, j), l = raw_left(p, d, P, j);
+  if (d[8] == 1) {
+    if (j == 0) {
+      t = l = (raw_left(p, d, P, 1) + 2 * t + raw_top(p, d, P, 1) + 2) >> 2;
+    } else {
+      const int jp = min(j + 1, kRL - 1);
+      if (j <= 2 * d[3] - 1) {
+        t = (raw_top(p, d, P, j - 1) + 2 * t + raw_top(p, d, P, jp) + 2) >> 2;
+      }
+      if (j <= 2 * d[4] - 1) {
+        l = (raw_left(p, d, P, j - 1) + 2 * l + raw_left(p, d, P, jp) + 2) >>
+            2;
+      }
+    }
+  }
   *top = t;
   *left = l;
 }
@@ -187,6 +296,21 @@ __device__ int pdpc_dc_planar(const int* d, const int* T, const int* L,
   const int wt = 32 >> min((2 * y) >> scale, 31);
   const int wl = 32 >> min((2 * x) >> scale, 31);
   return pred + ((wl * (L[1 + y] - pred) + wt * (T[1 + x] - pred) + 32) >> 6);
+}
+
+// the DC value of unit k by its warp into sm.scal[k][0]
+__device__ void dc_setup(Shared& sm, const int* d, int k, int lane) {
+  const int w = d[3], h = d[4];
+  int st = 0, sl = 0;
+  for (int i = 1 + lane; i < kRL; i += 32) {
+    if (i <= w) st += sm.top[k][i];
+    if (i <= h) sl += sm.left[k][i];
+  }
+  st = __reduce_add_sync(kFull, st);
+  sl = __reduce_add_sync(kFull, sl);
+  const int s2 = (w >= h ? st : 0) + (w <= h ? sl : 0);
+  const int shift = w == h ? d[5] + 1 : max(d[5], d[6]);
+  if (lane == 0) sm.scal[k][0] = (s2 + (1 << max(shift - 1, 0))) >> shift;
 }
 
 // ------------------------------------------------------------- angular
@@ -281,34 +405,37 @@ __device__ int pred_angular(const Params& p, const int* d, const int* T,
 }
 
 // ----------------------------------------------------------------- MIP
-// set-up of unit k by its warp: boundary reduction, input vector, the
+// set-up of unit k by its warp: the boundary groups by warp reductions
+// (lane i sums top and left samples i and i + 32), the input vector, the
 // matrix product into sm.mip[k] (transposed where d[25])
-__device__ void mip_setup(const Params& p, Shared& sm, int k, int lane) {
-  const int* d = sm.d[k];
+__device__ void mip_setup(const Params& p, Shared& sm, const int* d, int k,
+                          int lane) {
   const int w = d[3], h = d[4], l2w = d[5], l2h = d[6];
   const int sid = d[26], mode = d[24];
   const bool transpose = d[25] == 1;
   const int log2bdry = 2 - (sid == 0);
   const int bdry = 1 << log2bdry;
-  if (lane < 8) {
-    // lanes 0-3: the top run's group sums, lanes 4-7 the left run's
-    const bool is_top = lane < 4;
-    const int g = lane & 3;
-    const int* ref = is_top ? sm.top[k] : sm.left[k];
-    const int side = is_top ? w : h;
-    const int lgf = max((is_top ? l2w : l2h) - log2bdry, 0);
-    int s = 0;
-    for (int i = 0; i < kB; ++i) {
-      if ((i >> lgf) == g && i < side) s += ref[1 + i];
-    }
-    sm.red[k][lane] = lgf > 0 ? (s + (1 << max(lgf - 1, 0))) >> lgf : s;
+  const int lgf_t = max(l2w - log2bdry, 0), lgf_l = max(l2h - log2bdry, 0);
+  const int* T = sm.top[k];
+  const int* L = sm.left[k];
+  const int i0 = lane, i1 = lane + 32;
+  const int t0 = i0 < w ? T[1 + i0] : 0, t1 = i1 < w ? T[1 + i1] : 0;
+  const int l0 = i0 < h ? L[1 + i0] : 0, l1 = i1 < h ? L[1 + i1] : 0;
+  int t_red[4], l_red[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const int st = __reduce_add_sync(
+        kFull, ((i0 >> lgf_t) == g ? t0 : 0) + ((i1 >> lgf_t) == g ? t1 : 0));
+    const int sl = __reduce_add_sync(
+        kFull, ((i0 >> lgf_l) == g ? l0 : 0) + ((i1 >> lgf_l) == g ? l1 : 0));
+    t_red[g] = lgf_t > 0 ? (st + (1 << (lgf_t - 1))) >> lgf_t : st;
+    l_red[g] = lgf_l > 0 ? (sl + (1 << (lgf_l - 1))) >> lgf_l : sl;
   }
   sm.mip[k][lane] = 0;
   sm.mip[k][lane + 32] = 0;
   __syncwarp();
-  const int* t_red = sm.red[k];
-  const int* l_red = sm.red[k] + 4;
   int inp[8];
+#pragma unroll
   for (int i = 0; i < 8; ++i) {
     const bool lo = i < bdry;
     const int i_lo = clampi(i, 0, 3), i_hi = clampi(i - bdry, 0, 3);
@@ -318,6 +445,7 @@ __device__ void mip_setup(const Params& p, Shared& sm, int k, int lane) {
   }
   const int in_off = inp[0];
   int sum = 0;
+#pragma unroll
   for (int i = 0; i < 8; ++i) {
     int v = i == 0 ? (sid < 2 ? (1 << (p.bd - 1)) - in_off : 0)
                    : inp[i] - in_off;
@@ -392,33 +520,43 @@ __device__ __forceinline__ Cclm cclm_of(const Params& p) {
   return c;
 }
 
-// the luma sample at (r, c): a negative index wraps once at the plane
-// less its padding and clamps at its last row / column, then the JAX
-// gather's own wrap and clamp at the padded plane
-__device__ __forceinline__ int lum(const Cclm& c, int r, int x) {
+// the luma row (column) a tap at r (x) reads: a negative index wraps
+// once at the plane less its padding and clamps at its last row
+// (column), then the JAX gather's own wrap and clamp at the padded
+// plane.  Each sample normalises its rows and columns once, not once a
+// tap.
+__device__ __forceinline__ int nrow(const Cclm& c, int r) {
   r = min(r < 0 ? r + c.lh : r, c.lh - 1);
-  r = clampi(r < 0 ? r + c.hh : r, 0, c.hh - 1);
-  x = min(x < 0 ? x + c.lw : x, c.lw - 1);
-  x = clampi(x < 0 ? x + c.ww : x, 0, c.ww - 1);
-  return c.luma[static_cast<size_t>(r) * c.ww + x];
+  return clampi(r < 0 ? r + c.hh : r, 0, c.hh - 1);
 }
 
-__device__ __forceinline__ int taps5(const Cclm& c, int r0, int c0, int r1,
-                                     int c1, int r2, int c2, int r3, int c3,
-                                     int r4, int c4) {
+__device__ __forceinline__ int ncol(const Cclm& c, int x) {
+  x = min(x < 0 ? x + c.lw : x, c.lw - 1);
+  return clampi(x < 0 ? x + c.ww : x, 0, c.ww - 1);
+}
+
+__device__ __forceinline__ int lum(const Cclm& c, int r, int x) {
+  return ldp(c.luma + static_cast<size_t>(r) * c.ww + x);
+}
+
+// the 5-tap (collocated) cross: points (ra, ca), (rb, ca), (rb, cb),
+// (rb, cc), (rc, ca) of normalised rows and columns
+__device__ __forceinline__ int taps5(const Cclm& c, int ra, int rb, int rc,
+                                     int ca, int cb, int cc) {
   const int* t = kT5[c.tap];
   int acc = 0;
-  if (t[0]) acc += t[0] * lum(c, r0, c0);
-  if (t[1]) acc += t[1] * lum(c, r1, c1);
-  if (t[2]) acc += t[2] * lum(c, r2, c2);
-  if (t[3]) acc += t[3] * lum(c, r3, c3);
-  if (t[4]) acc += t[4] * lum(c, r4, c4);
+  if (t[0]) acc += t[0] * lum(c, ra, ca);
+  if (t[1]) acc += t[1] * lum(c, rb, ca);
+  if (t[2]) acc += t[2] * lum(c, rb, cb);
+  if (t[3]) acc += t[3] * lum(c, rb, cc);
+  if (t[4]) acc += t[4] * lum(c, rc, ca);
   return (acc + t[5]) >> t[6];
 }
 
+// the 6-tap window: points (ra, c0), (ra, c1), (ra, c2), (rb, c0),
+// (rb, c1), (rb, c2) of normalised rows and columns
 __device__ __forceinline__ int taps6(const Cclm& c, int ra, int rb, int c0,
                                      int c1, int c2) {
-  // points (ra, c0), (ra, c1), (ra, c2), (rb, c0), (rb, c1), (rb, c2)
   const int* t = kT6[c.tap];
   int acc = 0;
   if (t[0]) acc += t[0] * lum(c, ra, c0);
@@ -435,70 +573,99 @@ __device__ int cclm_ds_top(const Cclm& c, const Params& p, const int* d,
   const int lx = d[1] * c.sub_w, ly = d[2] * c.sub_h;
   const int xx = lx + c.sub_w * i;
   const int left_tap = (i == 0 && d[23] != 1) ? xx : xx - 1;
+  const int ca = ncol(c, xx), cb = ncol(c, left_tap), cc = ncol(c, xx + 1);
   if ((ly & ((1 << p.ctu_log2) - 1)) == 0) {
     const int* t = kT3[c.tap];
-    const int r3 = ly - 1;
+    const int r3 = nrow(c, ly - 1);
     int acc = 0;
-    if (t[0]) acc += t[0] * lum(c, r3, xx);
-    if (t[1]) acc += t[1] * lum(c, r3, left_tap);
-    if (t[2]) acc += t[2] * lum(c, r3, xx + 1);
+    if (t[0]) acc += t[0] * lum(c, r3, ca);
+    if (t[1]) acc += t[1] * lum(c, r3, cb);
+    if (t[2]) acc += t[2] * lum(c, r3, cc);
     return (acc + t[3]) >> t[4];
   }
   const int r = ly - c.sub_h;
   if (c.collocated) {
-    return taps5(c, r - c.stro, xx, r, xx, r, left_tap, r, xx + 1,
-                 r + c.stro, xx);
+    return taps5(c, nrow(c, r - c.stro), nrow(c, r), nrow(c, r + c.stro), ca,
+                 cb, cc);
   }
-  return taps6(c, r, r + c.stro, xx, left_tap, xx + 1);
+  return taps6(c, nrow(c, r), nrow(c, r + c.stro), ca, cb, cc);
 }
 
 __device__ int cclm_ds_left(const Cclm& c, const int* d, int j) {
   const int lx = d[1] * c.sub_w, ly = d[2] * c.sub_h;
   const int yy = ly + c.sub_h * j;
   const int base = lx - 2 - (c.sub_w - 1);
+  const int c0 = ncol(c, base + 1), c1 = ncol(c, base), c2 = ncol(c, base + 2);
   if (c.collocated) {
     const int top_tap = (j == 0 && d[27] != 1) ? yy : yy - c.stro;
-    return taps5(c, top_tap, base + 1, yy, base + 1, yy, base, yy, base + 2,
-                 yy + c.stro, base + 1);
+    return taps5(c, nrow(c, top_tap), nrow(c, yy), nrow(c, yy + c.stro), c0,
+                 c1, c2);
   }
-  return taps6(c, yy, yy + c.stro, base + 1, base, base + 2);
+  return taps6(c, nrow(c, yy), nrow(c, yy + c.stro), c0, c1, c2);
 }
 
-// set-up of unit k by its warp: the four template points (lanes 0-3 top,
-// 4-7 left), then lane 0's min/max fit into sm.scal[k] = (a, b, shift)
-__device__ void cclm_setup(const Params& p, Shared& sm, int k, int lane) {
-  const int* d = sm.d[k];
-  const Cclm c = cclm_of(p);
+// CCLM's template: where its four top and four left points lie
+struct Tmpl {
+  int start_t, step_t, start_l, step_l, cnt_t, cnt_l;
+  bool above, left;
+};
+
+__device__ __forceinline__ Tmpl tmpl_of(const int* d) {
+  Tmpl g;
   const int actual_top = d[24], actual_left = d[25];
-  const bool above_avail = (d[26] & 1) == 1, left_avail = (d[26] & 2) == 2;
-  const int above_is4 = !left_avail, left_is4 = !above_avail;
-  const int start_t = actual_top >> (2 + above_is4);
-  const int step_t = max(actual_top >> (1 + above_is4), 1);
-  const int start_l = actual_left >> (2 + left_is4);
-  const int step_l = max(actual_left >> (1 + left_is4), 1);
-  const int cnt_t = above_avail ? min(actual_top, (1 + above_is4) << 1) : 0;
-  const int cnt_l = left_avail ? min(actual_left, (1 + left_is4) << 1) : 0;
+  g.above = (d[26] & 1) == 1;
+  g.left = (d[26] & 2) == 2;
+  const int above_is4 = !g.left, left_is4 = !g.above;
+  g.start_t = actual_top >> (2 + above_is4);
+  g.step_t = max(actual_top >> (1 + above_is4), 1);
+  g.start_l = actual_left >> (2 + left_is4);
+  g.step_l = max(actual_left >> (1 + left_is4), 1);
+  g.cnt_t = g.above ? min(actual_top, (1 + above_is4) << 1) : 0;
+  g.cnt_l = g.left ? min(actual_left, (1 + left_is4) << 1) : 0;
+  return g;
+}
+
+// the template position of lane's point: lanes 0-3 top, 4-7 left
+__device__ __forceinline__ int tmpl_pos(const Tmpl& g, int lane) {
+  return lane < 4 ? g.start_t + lane * g.step_t
+                  : g.start_l + max((lane & 3) - g.cnt_t, 0) * g.step_l;
+}
+
+// the downsampled luma of lane's template point (lanes 0-7; 0 beyond),
+// read off the luma plane before the set-up
+__device__ int cclm_template(const Params& p, const Cclm& c, const int* d,
+                             int lane) {
+  const Tmpl g = tmpl_of(d);
+  if (lane < 4) return cclm_ds_top(c, p, d, tmpl_pos(g, lane));
+  if (lane < 8) return cclm_ds_left(c, d, tmpl_pos(g, lane));
+  return 0;
+}
+
+// set-up of unit k by its warp: the template points' luma lv (from
+// cclm_template) and chroma, shuffled to every lane, then lane 0's
+// min/max fit into sm.scal[k] = (a, b, shift)
+__device__ void cclm_setup(const Params& p, Shared& sm, const int* d, int k,
+                           int lane, int lv) {
+  const Tmpl g = tmpl_of(d);
+  const bool above_avail = g.above, left_avail = g.left;
+  const int cnt_t = g.cnt_t, cnt_l = g.cnt_l;
+  int cv = 0;
   if (lane < 8) {
-    const int q = lane & 3;
-    if (lane < 4) {
-      const int pos = start_t + q * step_t;
-      sm.red[k][q] = cclm_ds_top(c, p, d, pos);
-      sm.red[k][8 + q] = sm.top[k][clampi(1 + pos, 0, kRL - 1)];
-    } else {
-      const int pos = start_l + max(q - cnt_t, 0) * step_l;
-      sm.red[k][4 + q] = cclm_ds_left(c, d, pos);
-      sm.red[k][12 + q] = sm.left[k][clampi(1 + pos, 0, kRL - 1)];
-    }
+    const int* ref = lane < 4 ? sm.top[k] : sm.left[k];
+    cv = ref[clampi(1 + tmpl_pos(g, lane), 0, kRL - 1)];
   }
-  __syncwarp();
-  if (lane != 0) return;
   int sl[4], sc[4];
+#pragma unroll
   for (int q = 0; q < 4; ++q) {
+    const int lt = __shfl_sync(kFull, lv, q), ct = __shfl_sync(kFull, cv, q);
+    const int ll = __shfl_sync(kFull, lv, 4 + q);
+    const int cl = __shfl_sync(kFull, cv, 4 + q);
     const bool use_t = q < cnt_t;
     const bool use_l = q >= cnt_t && q < cnt_t + cnt_l;
-    sl[q] = use_t ? sm.red[k][q] : use_l ? sm.red[k][4 + q] : 0;
-    sc[q] = use_t ? sm.red[k][8 + q] : use_l ? sm.red[k][12 + q] : 0;
+    sl[q] = use_t ? lt : use_l ? ll : 0;
+    sc[q] = use_t ? ct : use_l ? cl : 0;
   }
+  if (lane != 0) return;
   if (cnt_t + cnt_l == 2) {
     sl[2] = sl[1];
     sl[3] = sl[0];
@@ -545,9 +712,8 @@ __device__ void cclm_setup(const Params& p, Shared& sm, int k, int lane) {
   sm.scal[k][2] = fit ? shift : 0;
 }
 
-__device__ int pred_cclm(const Params& p, const int* d, const int* sc, int y,
-                         int x) {
-  const Cclm c = cclm_of(p);
+// the downsampled luma of CCLM sample (y, x), which the fit maps
+__device__ int cclm_ds(const Cclm& c, const int* d, int y, int x) {
   const int yy = d[2] * c.sub_h + c.sub_h * y;
   const int xx = d[1] * c.sub_w + c.sub_w * x;
   const bool no_left = x == 0 && d[23] != 1;
@@ -555,44 +721,58 @@ __device__ int pred_cclm(const Params& p, const int* d, const int* sc, int y,
   if (c.collocated) {
     const int left_tap = no_left ? xx : xx - 1;
     const int top_tap = (y == 0 && d[27] != 1) ? yy : yy - c.stro;
-    ds = taps5(c, top_tap, xx, yy, xx, yy, left_tap, yy, xx + 1,
-               yy + c.stro, xx);
+    ds = taps5(c, nrow(c, top_tap), nrow(c, yy), nrow(c, yy + c.stro),
+               ncol(c, xx), ncol(c, left_tap), ncol(c, xx + 1));
   } else {
     const int lx0 = no_left ? xx : max(xx - 1, 0);
     const int xs1 = min(xx + 1, c.lw - 1);
-    ds = taps6(c, yy, yy + c.stro, xx, lx0, xs1);
+    ds = taps6(c, nrow(c, yy), nrow(c, yy + c.stro), ncol(c, xx),
+               ncol(c, lx0), ncol(c, xs1));
   }
+  return ds;
+}
+
+// CCLM's prediction of a downsampled luma ds by the fit sc = (a, b, shift)
+__device__ __forceinline__ int cclm_map(const Params& p, const int* sc,
+                                        int ds) {
   return clampi(sc[1] + ((sc[0] * ds) >> sc[2]), 0, (1 << p.bd) - 1);
 }
 
 // ---------------------------------------------------------------- LMCS
-// the chroma residual scale of unit k by its warp (calculateChromaAdj-
-// VpduNei: the luma left of and above the VPDU's top-left CU, its bin's
-// entry of the chroma table) into sm.scal[k][3]
-__device__ void lmcs_setup(const Params& p, Shared& sm, int k, int lane) {
-  const int* d = sm.d[k];
-  const int* lm = sm.lm;
+// lane's share of the weighted luma left of and above the VPDU's
+// top-left CU (calculateChromaAdjVpduNei), read before the set-up
+__device__ void lmcs_sums(const Params& p, const int* lm, const int* d,
+                          int lane, int* sum_l, int* sum_t) {
   const int num_nb = min(64, 1 << p.ctu_log2);
-  const int log_nb = 31 - __clz(num_nb);
   const int xpos = d[30], ypos = d[31];
-  const bool left_ok = (d[29] & 2) != 0, above_ok = (d[29] & 4) != 0;
   const int lim_l = clampi(lm[67] - ypos, 1, num_nb);
   const int lim_t = clampi(lm[68] - xpos, 1, num_nb);
   const int r0 = win_start(ypos, num_nb, p.hh);
   const int c0 = win_start(max(xpos - 1, 0), 1, p.ww);
   const int r1 = win_start(max(ypos - 1, 0), 1, p.hh);
   const int c1 = win_start(xpos, num_nb, p.ww);
-  int sum_l = 0, sum_t = 0;
+  int sl = 0, st = 0;
   for (int j = lane; j < num_nb; j += 32) {
     const int wl = j < lim_l - 1 ? 1 : j == lim_l - 1 ? num_nb - lim_l + 1 : 0;
     const int wt = j < lim_t - 1 ? 1 : j == lim_t - 1 ? num_nb - lim_t + 1 : 0;
-    sum_l += p.planes[static_cast<size_t>(r0 + j) * p.ww + c0] * wl;
-    sum_t += p.planes[static_cast<size_t>(r1) * p.ww + c1 + j] * wt;
+    sl += ldp(p.planes + static_cast<size_t>(r0 + j) * p.ww + c0) * wl;
+    st += ldp(p.planes + static_cast<size_t>(r1) * p.ww + c1 + j) * wt;
   }
-  for (int o = 16; o > 0; o >>= 1) {
-    sum_l += __shfl_xor_sync(0xffffffffu, sum_l, o);
-    sum_t += __shfl_xor_sync(0xffffffffu, sum_t, o);
-  }
+  *sum_l = sl;
+  *sum_t = st;
+}
+
+// the chroma residual scale of unit k by its warp, from the lanes'
+// lmcs_sums: the average's bin's entry of the chroma table, into
+// sm.scal[k][3]
+__device__ void lmcs_setup(const Params& p, Shared& sm, const int* d, int k,
+                           int lane, int sum_l, int sum_t) {
+  const int* lm = sm.lm;
+  const int num_nb = min(64, 1 << p.ctu_log2);
+  const int log_nb = 31 - __clz(num_nb);
+  const bool left_ok = (d[29] & 2) != 0, above_ok = (d[29] & 4) != 0;
+  sum_l = __reduce_add_sync(kFull, sum_l);
+  sum_t = __reduce_add_sync(kFull, sum_t);
   if (lane != 0) return;
   const int rec_sum = (left_ok ? sum_l : 0) + (above_ok ? sum_t : 0);
   const int pelnum = left_ok + above_ok;
@@ -617,107 +797,178 @@ __device__ __forceinline__ int scale_signal(int r, int scale, int bd) {
 }
 
 // -------------------------------------------------------------- kernel
+// the rows ys to ye of its unit a plan row holds (its slice), from the
+// pad field d[32] = ys | ye << 8
+__device__ __forceinline__ int slice_y0(const int* d) { return d[32] & 255; }
+__device__ __forceinline__ int slice_rows(const int* d) {
+  return max((d[32] >> 8) - (d[32] & 255), 0);
+}
+
+// the plane index of sample (y, x) of unit d's h x w corner
+__device__ __forceinline__ size_t sample_at(const Params& p, const int* d,
+                                            int y, int x) {
+  return clampi(d[0], 0, 2) * (static_cast<size_t>(p.hh) * p.ww) +
+         static_cast<size_t>(win_start(d[2], kB, p.hh) + y) * p.ww +
+         win_start(d[1], kB, p.ww) + x;
+}
+
+// sample t of a chunk: its row k (the last with off[k] <= t) and its
+// index o in the row's slice, by a branch-free select over the chunk's
+// offsets, which each thread holds in registers
+__device__ __forceinline__ void locate(const int (&off)[kU + 1], int t,
+                                       int& k, int& o) {
+  int base = 0;
+  k = 0;
+#pragma unroll
+  for (int j = 1; j < kU; ++j) {
+    if (off[j] <= t) {
+      k = j;
+      base = off[j];
+    }
+  }
+  o = t - base;
+}
+
 __global__ void __launch_bounds__(kThreads)
     intra_wavefront_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Shared& sm = *reinterpret_cast<Shared*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int pel_max = (1 << p.bd) - 1;
-  const size_t plane = static_cast<size_t>(p.hh) * p.ww;
+  uint16_t* staged = reinterpret_cast<uint16_t*>(smem_raw + sizeof(Shared));
+  const int rank = static_cast<int>(cluster_rank());
+  const int* recs = p.plan + kHead;
+  const int e0 = __ldg(p.plan + rank), e1 = __ldg(p.plan + rank + 1);
+  if (e0 < e1) copy_record(sm.rec[0], recs + e0, tid);
   for (int i = tid; i < kConstLen; i += kThreads) sm.consts[i] = p.consts[i];
   if (p.has_lmcs) {
     for (int i = tid; i < kLmLen; i += kThreads) sm.lm[i] = p.lm[i];
   }
-  for (int s = 0; s < p.S; ++s) {
-    // the step's rows; padding beyond K reads as invalid
-    const int* rows = p.batches + static_cast<size_t>(s) * p.K * kD;
-    for (int i = tid; i < kMaxK * kD; i += kThreads) {
-      const int k = i / kD;
-      sm.d[k][i % kD] = k < p.K ? rows[i] : 0;
-    }
+  const Cclm cc = cclm_of(p);
+  int phase = 0;
+  for (int e = e0, buf = 0; e < e1; buf ^= 1) {
+    wait_copies();
+    // this record has landed for every thread; the last chunk's shared
+    // state is free
     __syncthreads();
-    if (tid == 0) {
-      int o = 0;
-      for (int k = 0; k < kMaxK; ++k) {
-        sm.off[k] = o;
-        if (valid(sm, p, k)) {
-          o += max(min(sm.d[k][4], kB), 0) * max(min(sm.d[k][3], kB), 0);
+    const int* rec = sm.rec[buf];
+    const int nu = rec[1];
+    const int* rows = rec + 4;
+    e += 4 + nu * kRow;
+    if (e < e1) copy_record(sm.rec[buf ^ 1], recs + e, tid);
+    // a chunk of a later phase: arrive at the barrier that ends this
+    // block's phase now, and wait once the reads that need no plane (the
+    // residuals) are under way
+    const bool later = phase < rec[0];
+    if (later) cluster_arrive();
+    // first output sample of each row's slice, in every thread
+    int off[kU + 1];
+    off[0] = 0;
+#pragma unroll
+    for (int k = 0; k < kU; ++k) {
+      const int* d = rows + k * kRow;
+      off[k + 1] = off[k] + ((k < nu && d[28] == 1)
+                                 ? slice_rows(d) * max(min(d[3], kB), 0)
+                                 : 0);
+    }
+    const int total = off[kU];
+    // this thread's first two samples' residuals, read now: their
+    // latency passes under the barrier's
+    int pre_r[2], pre_ds[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int t = tid + u * kThreads;
+      pre_r[u] = pre_ds[u] = 0;
+      if (t < total) {
+        int k, o;
+        locate(off, t, k, o);
+        const int* d = rows + k * kRow;
+        const int w = min(d[3], kB);
+        if (d[9] == 1) {
+          pre_r[u] = __ldg(p.resi + sample_at(p, d, slice_y0(d) + o / w,
+                                              o % w));
         }
       }
-      sm.off[kMaxK] = o;
     }
-    for (int i = tid; i < kMaxK * kRL; i += kThreads) {
-      const int k = i / kRL, j = i % kRL;
-      if (valid(sm, p, k)) {
-        raw_refs(p, sm.d[k], j, &sm.raw_t[k][j], &sm.raw_l[k][j]);
+    if (later) {
+      cluster_wait();
+      // and the barriers of the phases this block has no unit in
+      for (++phase; phase < rec[0]; ++phase) cluster_sync();
+    }
+    // the plane reads that need no reference, issued before the
+    // references so their latencies overlap: CCLM's downsampled luma of
+    // this thread's first two samples, its template points (lanes 0-7 of
+    // warp k) and the LMCS sums (warp kU + k)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int t = tid + u * kThreads;
+      if (t < total) {
+        int k, o;
+        locate(off, t, k, o);
+        const int* d = rows + k * kRow;
+        const int w = min(d[3], kB);
+        if (d[7] == 4) pre_ds[u] = cclm_ds(cc, d, slice_y0(d) + o / w, o % w);
       }
     }
-    __syncthreads();
-    // [1 2 1] smoothing of the interior, a shared filtered corner
-    for (int i = tid; i < kMaxK * kRL; i += kThreads) {
-      const int k = i / kRL, j = i % kRL;
-      if (!valid(sm, p, k)) continue;
-      const int* d = sm.d[k];
-      const int* rt = sm.raw_t[k];
-      const int* rl = sm.raw_l[k];
-      int t = rt[j], l = rl[j];
-      if (d[8] == 1) {
-        if (j == 0) {
-          t = l = (rl[1] + 2 * rt[0] + rt[1] + 2) >> 2;
-        } else {
-          const int jp = min(j + 1, kRL - 1);
-          if (j <= 2 * d[3] - 1) t = (rt[j - 1] + 2 * t + rt[jp] + 2) >> 2;
-          if (j <= 2 * d[4] - 1) l = (rl[j - 1] + 2 * l + rl[jp] + 2) >> 2;
+    int tmpl = 0, sum_l = 0, sum_t = 0;
+    {
+      const int k = warp % kU;
+      const int* d = rows + k * kRow;
+      if (k < nu && d[28] == 1) {
+        if (warp < kU && d[7] == 4) {
+          tmpl = cclm_template(p, cc, d, lane);
+        } else if (warp >= kU && warp < 2 * kU && p.has_lmcs &&
+                   (d[29] & 1)) {
+          lmcs_sums(p, sm.lm, d, lane, &sum_l, &sum_t);
         }
       }
-      sm.top[k][j] = t;
-      sm.left[k][j] = l;
+    }
+    // the smoothed references of every unit
+    for (int i = tid; i < kU * kRL; i += kThreads) {
+      const int k = i / kRL, j = i - k * kRL;
+      const int* d = rows + k * kRow;
+      if (k < nu && d[28] == 1) gather_ref(p, d, j, &sm.top[k][j],
+                                           &sm.left[k][j]);
     }
     __syncthreads();
-    // the step's mode class is row 0's, as the plain version's
-    const int mc = sm.d[0][7];
-    if (warp < kMaxK && valid(sm, p, warp)) {
-      const int k = warp;
-      const int* d = sm.d[k];
-      if (mc == 1) {
-        const int w = d[3], h = d[4];
-        int st = 0, sl = 0;
-        for (int i = 1 + lane; i < kRL; i += 32) {
-          if (i <= w) st += sm.top[k][i];
-          if (i <= h) sl += sm.left[k][i];
-        }
-        for (int o = 16; o > 0; o >>= 1) {
-          st += __shfl_xor_sync(0xffffffffu, st, o);
-          sl += __shfl_xor_sync(0xffffffffu, sl, o);
-        }
-        const int s2 = (w >= h ? st : 0) + (w <= h ? sl : 0);
-        const int shift = w == h ? d[5] + 1 : max(d[5], d[6]);
-        if (lane == 0) sm.scal[k][0] = (s2 + (1 << max(shift - 1, 0))) >> shift;
-      } else if (mc == 3) {
-        mip_setup(p, sm, k, lane);
-      } else if (mc == 4) {
-        cclm_setup(p, sm, k, lane);
-      }
-      if (p.has_lmcs && (d[29] & 1)) {
-        __syncwarp();
-        lmcs_setup(p, sm, k, lane);
-      }
+    // per-unit set-up: warp k the class's, warp kU + k the LMCS scale
+    bool setup = false;
+    for (int k = 0; k < nu; ++k) {
+      const int* d = rows + k * kRow;
+      setup |= d[28] == 1 && (d[7] == 1 || d[7] == 3 || d[7] == 4 ||
+                              (p.has_lmcs && (d[29] & 1)));
     }
-    __syncthreads();
-    // every output sample of the step's units, before any write
-    const int total = sm.off[kMaxK];
-    for (int t = tid; t < total; t += kThreads) {
-      int k = 0;
-      while (k + 1 < kMaxK && sm.off[k + 1] <= t) ++k;
-      const int* d = sm.d[k];
+    if (setup) {
+      const int k = warp % kU;
+      const int* d = rows + k * kRow;
+      if (k < nu && d[28] == 1) {
+        if (warp < kU) {
+          if (d[7] == 1) {
+            dc_setup(sm, d, k, lane);
+          } else if (d[7] == 3) {
+            mip_setup(p, sm, d, k, lane);
+          } else if (d[7] == 4) {
+            cclm_setup(p, sm, d, k, lane, tmpl);
+          }
+        } else if (warp < 2 * kU && p.has_lmcs && (d[29] & 1)) {
+          lmcs_setup(p, sm, d, k, lane, sum_l, sum_t);
+        }
+      }
+      __syncthreads();
+    }
+    // every output sample, straight to the planes (staged: to shared
+    // memory, written after every read of the chunk)
+#pragma unroll 1
+    for (int i = 0, t = tid; t < total; ++i, t += kThreads) {
+      int k, o;
+      locate(off, t, k, o);
+      const int* d = rows + k * kRow;
       const int* T = sm.top[k];
       const int* L = sm.left[k];
       const int w = min(d[3], kB);
-      const int y = (t - sm.off[k]) / w, x = (t - sm.off[k]) % w;
-      const size_t at = clampi(d[0], 0, 2) * plane +
-                        static_cast<size_t>(win_start(d[2], kB, p.hh) + y) *
-                            p.ww +
-                        win_start(d[1], kB, p.ww) + x;
+      const int y = slice_y0(d) + o / w, x = o % w;
+      const size_t at = sample_at(p, d, y, x);
+      const int mc = d[7];
       int v;
       switch (mc) {
         case 1:
@@ -730,7 +981,9 @@ __global__ void __launch_bounds__(kThreads)
           v = pred_mip(d, T, L, sm.mip[k], y, x);
           break;
         case 4:
-          v = pred_cclm(p, d, sm.scal[k], y, x);
+          v = cclm_map(p, sm.scal[k],
+                       i == 0 ? pre_ds[0]
+                              : i == 1 ? pre_ds[1] : cclm_ds(cc, d, y, x));
           break;
         default:
           v = pred_planar(d, T, L, y, x);
@@ -738,60 +991,78 @@ __global__ void __launch_bounds__(kThreads)
       if ((mc == 0 || mc == 1 || mc == 5) && d[27] == 1) {
         v = pdpc_dc_planar(d, T, L, v, y, x);
       }
-      if (mc == 5) v = (d[25] * p.planes[at] + d[24] * v + 2) >> 2;
+      if (mc == 5) v = (d[25] * ldp(p.planes + at) + d[24] * v + 2) >> 2;
       if (d[9] == 1) {
-        int r = p.resi[at];
+        int r = i == 0 ? pre_r[0] : i == 1 ? pre_r[1] : __ldg(p.resi + at);
         if (p.has_lmcs && (d[29] & 1)) r = scale_signal(r, sm.scal[k][3], p.bd);
         v += r;
       }
-      sm.out[t] = static_cast<uint16_t>(clampi(v, 0, pel_max));
-    }
-    __syncthreads();
-    // the masked writes; a later row wins where two units overlap
-    for (int t = tid; t < total; t += kThreads) {
-      int k = 0;
-      while (k + 1 < kMaxK && sm.off[k + 1] <= t) ++k;
-      const int* d = sm.d[k];
-      const int w = min(d[3], kB);
-      const int c = clampi(d[0], 0, 2);
-      const int yy = win_start(d[2], kB, p.hh) + (t - sm.off[k]) / w;
-      const int xx = win_start(d[1], kB, p.ww) + (t - sm.off[k]) % w;
-      bool later = false;
-      for (int k2 = k + 1; k2 < kMaxK; ++k2) {
-        const int* e = sm.d[k2];
-        if (!valid(sm, p, k2) || clampi(e[0], 0, 2) != c) continue;
-        const int y0 = win_start(e[2], kB, p.hh), x0 = win_start(e[1], kB, p.ww);
-        later |= yy >= y0 && yy < y0 + min(e[4], kB) && xx >= x0 &&
-                 xx < x0 + min(e[3], kB);
+      v = clampi(v, 0, pel_max);
+      if (p.staged) {
+        staged[t] = static_cast<uint16_t>(v);
+      } else {
+        p.planes[at] = v;
       }
-      if (!later) p.planes[c * plane + static_cast<size_t>(yy) * p.ww + xx] =
-          sm.out[t];
     }
-    __syncthreads();
+    if (p.staged) {
+      __syncthreads();
+      for (int t = tid; t < total; t += kThreads) {
+        int k, o;
+        locate(off, t, k, o);
+        const int* d = rows + k * kRow;
+        const int w = min(d[3], kB);
+        p.planes[sample_at(p, d, slice_y0(d) + o / w, o % w)] = staged[t];
+      }
+    }
   }
+  // the barriers after this block's last unit
+  for (; phase < p.n_phases - 1; ++phase) cluster_sync();
 }
 
 }  // namespace
 
-// One launch over the whole [S, K, kD] batch on `stream`; returns the
-// cudaError_t of the launch (0 on success).
+// One launch of one cluster of `cluster` blocks over a host plan
+// (ops/cuda/intra.py wavefront_plan) of n_phases phases on `stream`;
+// `staged` (one block, a chunk a phase) writes each chunk's samples after
+// all its reads.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int intra_wavefront_launch(int* planes, const int* resi,
-                                      const int* batches, int S, int K,
-                                      int hh, int ww, const int* consts,
-                                      const int* lm, int bd, int cfmt,
-                                      int collocated, int ctu_log2,
-                                      int has_lmcs, void* stream) {
-  if (K < 1 || K > kMaxK || S < 0 || hh < kRL || ww < kRL) {
+                                      const int* plan, int n_phases,
+                                      int cluster, int hh, int ww,
+                                      const int* consts, const int* lm,
+                                      int bd, int cfmt, int collocated,
+                                      int ctu_log2, int has_lmcs,
+                                      int staged, void* stream) {
+  if (cluster < 1 || cluster > kMaxCluster || n_phases < 0 || hh < kRL ||
+      ww < kRL || (staged && cluster != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int smem = static_cast<int>(sizeof(Shared));
+  const int smem = static_cast<int>(
+      sizeof(Shared) + (staged ? kU * kB * kB * sizeof(uint16_t) : 0));
   cudaError_t e = cudaFuncSetAttribute(
       intra_wavefront_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  Params p{planes, resi, batches, consts, lm, S, K, hh, ww,
-           bd, cfmt, collocated, ctu_log2, has_lmcs};
-  intra_wavefront_kernel<<<1, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(p);
+  if (cluster > 8) {
+    e = cudaFuncSetAttribute(intra_wavefront_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  Params p{planes, resi, plan, consts, lm, n_phases, hh, ww,
+           bd, cfmt, collocated, ctu_log2, has_lmcs, staged};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, intra_wavefront_kernel, p);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

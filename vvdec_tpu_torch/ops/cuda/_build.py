@@ -5,7 +5,9 @@ has a plain C interface, for sm_90a into build/kernels/ at the repository
 root, keyed by a hash of the source and the flags; ctypes loads it.  A
 build runs once per process and source; a failed build raises
 KernelError with the compiler's output, and so does a library ctypes
-cannot load.  Nothing runs at import time.
+cannot load; a build that succeeds keeps the compiler's output
+(`-Xptxas -v`: each kernel's registers, spills and shared memory)
+beside the library (`build_log`).  Nothing runs at import time.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict = {}
 
@@ -68,11 +70,23 @@ def build_kernel(name: str) -> str:
             raise KernelError(
                 f"nvcc failed for csrc/{name}.cu (rc {r.returncode}):\n"
                 f"{r.stdout}\n{r.stderr}")
+        with open(out[:-3] + ".log", "w") as f:
+            f.write(r.stdout + r.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_log(name: str) -> str:
+    """The compiler's output of the build of csrc/<name>.cu ("" where
+    the library was built without it)."""
+    path = library_path(name)[:-3] + ".log"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
 
 
 def load_kernel(name: str) -> ctypes.CDLL:

@@ -16,13 +16,16 @@ xFillReferenceSamples, IntraPrediction.cpp:1161) is value-independent,
 so the host compiles each unit into a 33-int descriptor row
 (`build_intra_descriptors`, copied from the reference as it stands) and
 groups rows into steps of independent units (`compute_unit_levels`,
-`build_wavefront_batches`).  On the card one launch of the hand-written
-kernel csrc/intra_wavefront.cu runs every step of a picture
+`build_wavefront_batches`, and `wavefront_step_levels`, the level of
+each step).  On the card one launch of the hand-written kernel
+csrc/intra_wavefront.cu runs every step of a picture
 (`ops/cuda/intra.intra_wavefront_cuda`), as the JAX package's one
-`lax.scan` + `lax.switch` program a picture does; on the CPU its plain
-version (`intra_wavefront_ref`) runs one Python loop iteration per step:
-gather the references of K units, predict, add the residual, and write
-the K blocks, with the mode class read from the host's numpy batches.
+`lax.scan` + `lax.switch` program a picture does, but a dependency level
+at a time over a thread-block cluster; on the CPU its plain version
+(`intra_wavefront_ref`) runs one Python loop iteration a level and mode
+class: gather the references of the level's units, predict, add the
+residual, then write the level's blocks, with the mode classes read from
+the host's numpy batches.
 The helpers below are that plain version's: the JAX package's `vmap`
 over K becomes a leading batch dimension; its one-hot float matmul
 gathers become integer indexing that returns 0 outside the source, as
@@ -746,29 +749,36 @@ def _intra_wavefront_fn(bd: int, cfmt: int, collocated: bool,
     residual add -> masked block write into a stacked [3, H, W] plane,
     so a step can mix luma and chroma units).
 
-    run(planes, resis, batches, lm): planes / resis are 3 padded int32
-    tensors on one device; batches is the host's [S, K, D] numpy array;
-    lm is the build_lmcs_params table as an int32 tensor on that device,
-    read only with has_lmcs (then chroma residuals flagged in d[29] are
-    scaled by their VPDU's luma average).  Returns the 3 planes.  The
-    steps run in intra_wavefront_cuda: one kernel launch on a CUDA
-    device, the plain loop on the CPU.  CCLM and the LMCS scale read the
-    luma plane as the earlier steps left it.  Units inside one step
-    never read each other's output, so the result is bit-identical to a
-    sequential scan."""
+    run(planes, resis, batches, lm, *, levels=None): planes / resis are
+    3 padded int32 tensors on one device; batches is the host's
+    [S, K, D] numpy array; lm is the build_lmcs_params table as an int32
+    tensor on that device, read only with has_lmcs (then chroma
+    residuals flagged in d[29] are scaled by their VPDU's luma average);
+    levels is each step's dependency level (wavefront_step_levels), or
+    None for one phase a step, the reference's own schedule.  Returns
+    the 3 planes.  The steps run in intra_wavefront_cuda: one kernel
+    launch on a CUDA device, the plain loop on the CPU, a phase (the
+    steps of one level) at a time.  CCLM and the LMCS scale read the
+    luma plane as the earlier levels left it.  Units of one level never
+    read each other's output, so the result is bit-identical to the
+    reference's step scan and to a sequential scan."""
 
-    def run(planes, resis, batches, lm=None):
+    def run(planes, resis, batches, lm=None, *, levels=None):
+        from vvdec_tpu_torch.ops.device_pipeline import timed_stage
         dev = planes[0].device
-        hh = max(max(p.shape[0] for p in planes), RL)
-        ww = max(max(p.shape[1] for p in planes), RL)
-        P = torch.zeros((3, hh, ww), dtype=torch.int32, device=dev)
-        R = torch.zeros((3, hh, ww), dtype=torch.int32, device=dev)
-        for c in range(3):
-            P[c, :planes[c].shape[0], :planes[c].shape[1]] = planes[c]
-            R[c, :resis[c].shape[0], :resis[c].shape[1]] = resis[c]
-        intra_wavefront_cuda(P, R, batches, intra_consts(dev), lm, bd=bd,
-                             cfmt=cfmt, collocated=collocated,
-                             ctu_log2=ctu_log2, K=K, has_lmcs=has_lmcs)
+        with timed_stage("intra: planes set-up", dev):
+            hh = max(max(p.shape[0] for p in planes), RL)
+            ww = max(max(p.shape[1] for p in planes), RL)
+            P = torch.zeros((3, hh, ww), dtype=torch.int32, device=dev)
+            R = torch.zeros((3, hh, ww), dtype=torch.int32, device=dev)
+            for c in range(3):
+                P[c, :planes[c].shape[0], :planes[c].shape[1]] = planes[c]
+                R[c, :resis[c].shape[0], :resis[c].shape[1]] = resis[c]
+        with timed_stage("intra: kernel", dev):
+            intra_wavefront_cuda(P, R, batches, intra_consts(dev), lm, bd=bd,
+                                 cfmt=cfmt, collocated=collocated,
+                                 ctu_log2=ctu_log2, K=K, has_lmcs=has_lmcs,
+                                 levels=levels)
         return tuple(P[c, :planes[c].shape[0], :planes[c].shape[1]]
                      for c in range(3))
 
@@ -1011,6 +1021,22 @@ def build_wavefront_batches(desc: np.ndarray, lvl: np.ndarray,
         else np.zeros((0, K, D), dtype=np.int32)
 
 
+def wavefront_step_levels(desc: np.ndarray, lvl: np.ndarray,
+                          K: int) -> np.ndarray:
+    """The dependency level of each step of build_wavefront_batches(desc,
+    lvl, K), [S] int32, without building the batches: its (level,
+    mode_class) groups, in order of first appearance among the units
+    sorted by level, each cut into ceil(n / K) steps.  Never decreasing."""
+    if desc.shape[0] == 0:
+        return np.zeros(0, dtype=np.int32)
+    order = np.argsort(lvl, kind="stable")
+    keys, first, counts = np.unique(
+        np.stack([lvl[order], desc[order, 7]], 1).astype(np.int64), axis=0,
+        return_index=True, return_counts=True)
+    g = np.argsort(first)
+    return np.repeat(keys[g, 0], -(-counts[g] // K)).astype(np.int32)
+
+
 def scan_key(cs) -> tuple:
     """Static configuration of the intra scan program for this stream."""
     return (cs.sps.bit_depth, cs.sps.chroma_format_idc,
@@ -1024,8 +1050,10 @@ def run_intra_scan(planes_pad, resi_pad, desc: np.ndarray, key, lmcs=None,
     key = scan_key(cs); lmcs, when the picture uses LMCS, is the
     build_lmcs_params table as an int32 tensor on that device.  scan:
     "wavefront" (units grouped by exact dependency level into steps of
-    at most WAVEFRONT_K) or "seq" (one unit a step, the parity baseline;
-    the reference's VVDEC_INTRA_SCAN=seq)."""
+    at most WAVEFRONT_K, run a level at a time) or "seq" (one unit a
+    step, the parity baseline; the reference's VVDEC_INTRA_SCAN=seq).
+    The wavefront's profiler stages: "intra: levels (host)", "intra:
+    batches (host)", "intra: planes set-up" and "intra: kernel"."""
     if desc.shape[0] == 0:
         return tuple(planes_pad)
     if scan == "seq":
@@ -1033,10 +1061,16 @@ def run_intra_scan(planes_pad, resi_pad, desc: np.ndarray, key, lmcs=None,
             tuple(planes_pad), tuple(resi_pad), desc, lmcs)
     if scan != "wavefront":
         raise ValueError(f"run_intra_scan: unknown scan {scan!r}")
-    lvl = compute_unit_levels(desc, key[1])
-    batches = build_wavefront_batches(desc, lvl, WAVEFRONT_K)
+    from vvdec_tpu_torch.ops.device_pipeline import timed_stage
+    dev = planes_pad[0].device
+    with timed_stage("intra: levels (host)", dev):
+        lvl = compute_unit_levels(desc, key[1])
+        levels = wavefront_step_levels(desc, lvl, WAVEFRONT_K)
+    with timed_stage("intra: batches (host)", dev):
+        batches = build_wavefront_batches(desc, lvl, WAVEFRONT_K)
     fn = _intra_wavefront_fn(*key, WAVEFRONT_K, lmcs is not None)
-    return fn(tuple(planes_pad), tuple(resi_pad), batches, lmcs)
+    return fn(tuple(planes_pad), tuple(resi_pad), batches, lmcs,
+              levels=levels)
 
 
 # ======================================================================
