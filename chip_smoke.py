@@ -8,12 +8,17 @@ result line:
 
 1. the card: torch / CUDA versions and the card's name and power limit;
 2. the build: nvcc compiles every kernel of the decode path from
-   vvdec_tpu_torch/csrc/ into build/kernels/ (itx.cu and
-   intra_wavefront.cu, one nvcc each, started together), and prints
-   each kernel's registers and spills as -Xptxas -v reports them;
+   vvdec_tpu_torch/csrc/ into build/kernels/ (itx.cu, intra_wavefront.cu
+   and deblock.cu, one nvcc each, started together), and prints each
+   kernel's registers and spills as -Xptxas -v reports them;
 3. each kernel against its plain PyTorch version on the card, bit-equal,
    with its time, the plain version's time and its bound per shape,
-   through the one-group wrapper itx_batch_cuda;
+   through the one-group wrapper itx_batch_cuda; the deblock kernel
+   (deblock_dense_cuda) against deblock_dense_ref on fuzzed grids with
+   overlapping write windows at 832x480 and 1920x1080 4:2:0 (also with
+   a frame axis of 3 pictures), 4:0:0, 4:2:2 and 4:4:4, 8 and 10 bits,
+   one and two slices, each with its device time, the plain version's
+   and the bound;
 4. the main path: the headline all-intra 832x480 Main10 stream (8
    frames, made by the port's own test encoder) decoded through
    vvdec_tpu_torch.decoder.decode_annexb on CUDA; the ITX kernel must be
@@ -32,7 +37,12 @@ result line:
    empty-phase floor (the same phases with every unit masked), the plain
    version's (frame 0), the bound, the steps, the dependency levels and
    the phases; frame 0 also runs at every cluster size (1, 2, 4, 8, 16),
-   each bit-equal, with its time and floor;
+   each bit-equal, with its time and floor.  The deblock kernel
+   (deblock_dense_cuda, two launches per picture the device filters:
+   checked in every timed decode of phases 4-8 and 13) is held to
+   deblock_dense_ref on every recorded picture's pre-deblock planes of
+   phases 4-8 and 13, and timed per headline frame (and per 1080p frame
+   in phase 13);
 5. intra LMCS: the intra LMCS stream (chroma residual scaling; 2
    frames, 832x480, made by the port's own test encoder,
    vvdec_tpu_torch/streams.py): a warm-up decode that records the ITX
@@ -94,7 +104,9 @@ result line:
    (e) decode_annexb_multihost in 2 spawned gloo ranks (file store) on
    the card over the headline stream, on HEADLINE_MD5, with each rank's
    card memory.  Every device picture of (a)-(d) makes one ITX launch,
-   held to the plain version;
+   held to the plain version; (a) deblocks every band through
+   deblock_dense_cuda, (b) its 4 stacked pictures in one call of 2
+   launches;
 12. the whole-frame stages of vvdec_tpu_torch/ops/pipeline.py: the first
    picture of the headline, tool-rich and SAO/ALF streams, and both
    pictures of the vb and tiles-ALF streams (virtual boundaries; a 2x2
@@ -124,7 +136,8 @@ result line:
    allocated memory.  The ITX kernel is held to its plain version on
    every recorded frame, the intra wavefront kernel on the first picture
    and on every 1080p IDR picture (the first SAO/ALF 1080p one also at
-   every cluster size); on the max-density and 1080p frames
+   every cluster size), the deblock kernel on every picture (and timed
+   per 1080p frame); on the max-density and 1080p frames
    the ITX kernel prints per
    frame the kernel's device ms (torch.profiler, as for the headline,
    over a trace of 300 launches of the frame: short traces lose most of
@@ -163,6 +176,15 @@ plain_ms and bound_ms are the headline's first picture's: the kernel's
 device time (torch.profiler, 100 launches), the plain version's (one
 run) and the bytes it must move (wavefront_work) over HBM_BYTES_PER_S;
 floor_ms is its empty-phase floor's device time and phases its phases.
+In the deblock entry, launches counts the deblock_dense_cuda launches of
+the timed decodes of phases 4-8 and 13, max_abs_err covers phase 3's
+cases and every recorded picture, and ms, plain_ms, call_ms and bound_ms
+are per headline frame: the kernel's device time (torch.profiler over
+TRACE_LAUNCHES launches), the plain version's (its kernels in one traced
+run), the wrapper calls' stream time (CUDA events) and the bytes of
+reading each input once and writing each plane once over
+HBM_BYTES_PER_S (bound_two_pass_ms: each plane read and written once
+per direction).
 Needs a CUDA device; imports neither JAX nor the JAX package.
 """
 
@@ -188,7 +210,7 @@ PEAK_F32_OPS_PER_S = 67e12
 TABLE_ROW_BYTES = 40        # one TU row of the work table (10 int32)
 BIT_DEPTH = 10
 # the sources of csrc/ the decode path runs, built in phase 2
-KERNELS = ("itx", "intra_wavefront")
+KERNELS = ("itx", "intra_wavefront", "deblock")
 
 
 class SmokeFailure(Exception):
@@ -551,10 +573,11 @@ def itx_recording(recorded: list, host: bool = False, census=None,
 
 
 def recording_decode(stream: bytes, label: str, census=None,
-                     refined=None, wavefront=None) -> list:
+                     refined=None, wavefront=None, deblock=None) -> list:
     """One decode on CUDA inside itx_recording(census=, refined=) and,
-    with `wavefront` (a WavefrontLog), wavefront_recording.  Returns the
-    recorded ITX calls."""
+    with `wavefront` (a WavefrontLog), wavefront_recording, with
+    `deblock` (a DeblockLog), deblock_recording.  Returns the recorded
+    ITX calls."""
     import torch
 
     from vvdec_tpu_torch.decoder import decode_annexb
@@ -564,6 +587,8 @@ def recording_decode(stream: bytes, label: str, census=None,
                                           refined=refined))
         if wavefront is not None:
             stack.enter_context(wavefront_recording(wavefront))
+        if deblock is not None:
+            stack.enter_context(deblock_recording(deblock))
         t0 = time.perf_counter()
         decode_annexb(stream)
         torch.cuda.synchronize()
@@ -574,7 +599,7 @@ def recording_decode(stream: bytes, label: str, census=None,
 def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
                  label: str, census=None, device_frames=None,
                  size=(832, 480), recorded=None, prefix=None,
-                 profile=False, wavefront=None) -> dict:
+                 profile=False, wavefront=None, deblock=None) -> dict:
     """The path as a user drives it: a StreamDecoder on CUDA fed the
     whole stream, then flushed (what decode_annexb does), with the
     kernels' launch counts set to 0 just before and read just after.
@@ -582,8 +607,10 @@ def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
     (width, height) 4:2:0, the decoder's fallback census equals `census`
     (default: empty, every picture on the device), the ITX kernel was
     launched once per device picture (`device_frames`, default every
-    frame) and the intra wavefront kernel once per picture whose scan
-    has a step, at least once.  The wavefront calls go through
+    frame), the intra wavefront kernel once per picture whose scan
+    has a step, at least once, and the deblock kernel twice per picture,
+    every picture being filtered on the device (its calls go through
+    `deblock`, a DeblockLog, default one that keeps no inputs).  The wavefront calls go through
     `wavefront` (a WavefrontLog, default one that keeps no inputs), which
     counts their steps by mode class.  With `recorded` (a list) the
     decode also records each
@@ -602,7 +629,9 @@ def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
     from vvdec_tpu_torch.utils.trace import profiler
     census = census or {}
     device_frames = n_frames if device_frames is None else device_frames
+    from vvdec_tpu_torch.ops.cuda.deblock import deblock_dense_cuda
     log = WavefrontLog() if wavefront is None else wavefront
+    dlog = DeblockLog() if deblock is None else deblock
     profiler.reset()
     profiler.enabled = profile
     try:
@@ -610,9 +639,11 @@ def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
             if recorded is not None:
                 stack.enter_context(itx_recording(recorded, host=True))
             stack.enter_context(wavefront_recording(log))
+            stack.enter_context(deblock_recording(dlog))
             itx_frame_cuda.launches = 0
             itx_batch_cuda.launches = 0
             intra_wavefront_cuda.launches = 0
+            deblock_dense_cuda.launches = 0
             t0 = time.perf_counter()
             dec = StreamDecoder()
             frames = [p.planes for p in dec.push(stream) + dec.flush()]
@@ -621,6 +652,7 @@ def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
             launches = itx_frame_cuda.launches
             batch_launches = itx_batch_cuda.launches
             intra_launches = intra_wavefront_cuda.launches
+            deblock_launches = deblock_dense_cuda.launches
     finally:
         profiler.enabled = False
     md5 = yuv_md5(frames)
@@ -629,7 +661,8 @@ def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
           f": {len(frames)} frames in {dt:.3f} s = {len(frames) / dt:.2f} "
           f"frames/s; itx launches {launches} (itx_batch_cuda "
           f"{batch_launches}); intra_wavefront launches {intra_launches} "
-          f"for {log.pictures} pictures with intra units; md5 {md5}; "
+          f"for {log.pictures} pictures with intra units; deblock launches "
+          f"{deblock_launches} for {dlog.pictures} pictures; md5 {md5}; "
           f"fallback census {got}")
     fail_unless(len(frames) == n_frames, f"{label}: {len(frames)} frames "
                 f"decoded, expected {n_frames}")
@@ -648,12 +681,16 @@ def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
     fail_unless(intra_launches == log.pictures and intra_launches > 0,
                 f"{label}: {intra_launches} intra_wavefront kernel launches "
                 f"for {log.pictures} pictures with intra units")
+    fail_unless(deblock_launches == 2 * dlog.pictures == 2 * n_frames,
+                f"{label}: {deblock_launches} deblock kernel launches for "
+                f"{dlog.pictures} deblocked pictures of {n_frames}")
     fail_unless(md5 == md5_pin, f"{label}: decoded YUV md5 {md5} != pinned "
                 f"{md5_pin}")
     fail_unless(got == census, f"{label}: fallback census {got} != "
                 f"{census}")
     out = dict(fps=len(frames) / dt, decode_s=dt, launches=launches,
-               intra_launches=intra_launches, md5=md5, census=got,
+               intra_launches=intra_launches,
+               deblock_launches=deblock_launches, md5=md5, census=got,
                intra_steps_by_class=log.steps_by_class(n_frames))
     if profile:
         out["stages_ms_per_frame"] = stage_split(n_frames, dt, label, log)
@@ -705,6 +742,183 @@ def check_frames(recorded, errs: list, label: str) -> None:
     torch.cuda.synchronize()
     print(f"[{label}] itx kernel == plain version on all {len(recorded)} "
           f"recorded frames")
+
+
+class DeblockLog:
+    """What the deblock_dense_cuda calls of the device filter chain did
+    while `deblock_recording(log)` is open: the pictures they filtered
+    (a call filters one picture, or a stack of them) and the inputs of
+    the first `keep` calls (the pre-deblock planes, the grids, the slice
+    tables; in host memory with `host`)."""
+
+    def __init__(self, keep: int = 0, host: bool = False):
+        self.keep, self.host = keep, host
+        self.pictures = 0
+        self.recorded: list = []
+
+
+@contextlib.contextmanager
+def deblock_recording(log: DeblockLog):
+    """While open, every deblock_dense_cuda call of the filter chain goes
+    through `log` (DeblockLog), then runs the wrapper."""
+    import vvdec_tpu_torch.ops.device_pipeline as device_pipeline
+    from vvdec_tpu_torch.ops.cuda.deblock import deblock_dense_cuda
+
+    def keep(t):
+        return None if t is None else t.cpu() if log.host else t.clone()
+
+    def recorder(planes, grids, si, sltab, **kw):
+        log.pictures += planes[0].shape[0] if planes[0].dim() == 3 else 1
+        if len(log.recorded) < log.keep:
+            log.recorded.append(dict(
+                planes=[keep(p) for p in planes],
+                grids=[keep(g) for g in grids], si=keep(si),
+                sltab=keep(sltab), kw=dict(kw)))
+        return deblock_dense_cuda(planes, grids, si, sltab, **kw)
+
+    device_pipeline.deblock_dense_cuda = recorder
+    try:
+        yield log
+    finally:
+        device_pipeline.deblock_dense_cuda = deblock_dense_cuda
+
+
+def deblock_on_card(rec: dict) -> dict:
+    """A recorded deblock call (deblock_recording) with its tensors on
+    the card."""
+    def card(t):
+        return None if t is None else t.cuda()
+    return dict(rec, planes=[card(p) for p in rec["planes"]],
+                grids=[card(g) for g in rec["grids"]], si=card(rec["si"]),
+                sltab=card(rec["sltab"]))
+
+
+def run_deblock(fn, rec: dict):
+    """One recorded call (tensors on the card) through fn, the wrapper or
+    its plain version."""
+    return fn(rec["planes"], rec["grids"], rec["si"], rec["sltab"],
+              **rec["kw"])
+
+
+def check_deblock(recorded, derrs: list, label: str) -> None:
+    """The deblock kernel against its plain version on every recorded
+    picture (its pre-deblock planes as the path gave them), bit-equal;
+    each picture's max |err| goes into `derrs`."""
+    import torch
+
+    from vvdec_tpu_torch.ops.cuda.deblock import (deblock_dense_cuda,
+                                                  deblock_dense_ref)
+    for i, rec in enumerate(recorded):
+        rec = deblock_on_card(rec)
+        got = run_deblock(deblock_dense_cuda, rec)
+        want = run_deblock(deblock_dense_ref, rec)
+        torch.cuda.synchronize()
+        err = max(int((a - b).abs().max()) for a, b in zip(got, want))
+        derrs.append(err)
+        fail_unless(err == 0, f"{label}: deblock picture {i} on the path's "
+                    f"inputs: max |err| {err}")
+    print(f"[{label}] deblock kernel == plain version on all "
+          f"{len(recorded)} recorded pictures")
+
+
+def deblock_work(rec: dict) -> tuple[int, int]:
+    """(bytes, two-pass bytes) of one recorded call: each input read once
+    at the width the kernel reads it (the int32 planes; the int16 grids,
+    slice-index grid and slice tables as the host packs them; the int32
+    constant pool) and each plane written once; the two-pass count reads
+    and writes each plane once per direction."""
+    from vvdec_tpu_torch.ops.cuda.deblock import CONST_LEN
+    planes = sum(p.numel() for p in rec["planes"]) * 4
+    params = sum(t.numel() * t.element_size() for t in
+                 [*rec["grids"], rec["si"], rec["sltab"]] if t is not None)
+    return 2 * planes + params + 4 * CONST_LEN, \
+        4 * planes + params + 4 * CONST_LEN
+
+
+def deblock_times(recorded, label: str) -> dict:
+    """Per picture of `recorded` (deblock_recording's calls): the
+    kernel's device time (torch.profiler over about TRACE_LAUNCHES
+    launches), the plain version's (its kernels in one traced run), the
+    wrapper calls' stream time (CUDA events, the host's cost between
+    launches included) and the bounds."""
+    from vvdec_tpu_torch.ops.cuda.deblock import (deblock_dense_cuda,
+                                                  deblock_dense_ref)
+    recs = [deblock_on_card(r) for r in recorded]
+    n = len(recs)
+
+    def run(fn=deblock_dense_cuda):
+        for rec in recs:
+            run_deblock(fn, rec)
+
+    k_ms = device_ms(run, -(-TRACE_LAUNCHES // (2 * n)), "deblock_kernel",
+                     launches=2 * n) / n
+    p_ms = trace_device_ms(lambda: run(deblock_dense_ref)) / n
+    c_ms = cuda_ms(run, 10) / n
+    nb, nb2 = (sum(v) / n for v in zip(*map(deblock_work, recs)))
+    b_ms = nb / HBM_BYTES_PER_S * 1e3
+    b2_ms = nb2 / HBM_BYTES_PER_S * 1e3
+    print(f"[{label}] deblock per picture (mean of {n}): 2 launches; device "
+          f"time kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms; bound "
+          f"{b_ms:.6f} ms (bytes; two passes {b2_ms:.6f} ms); stream time "
+          f"of the wrapper calls {c_ms:.4f} ms")
+    return dict(deblock_ms=k_ms, deblock_plain_ms=p_ms,
+                deblock_call_ms=c_ms, deblock_bound_ms=b_ms,
+                deblock_bound_by="bytes", deblock_bound_two_pass_ms=b2_ms,
+                deblock_pictures=n)
+
+
+# phase 3's deblock cases: label, height, width, chroma format, bit
+# depth, slices, frames (0: no frame axis)
+DEBLOCK_SHAPES = (("832x480 4:2:0 10-bit", 480, 832, 1, 10, 1, 0),
+                  ("832x480 4:2:0 10-bit, 3 frames", 480, 832, 1, 10, 1, 3),
+                  ("1920x1080 4:2:0 10-bit", 1080, 1920, 1, 10, 1, 0),
+                  ("832x480 4:0:0 8-bit", 480, 832, 0, 8, 1, 0),
+                  ("832x480 4:2:2 10-bit, 2 slices", 480, 832, 2, 10, 2, 0),
+                  ("832x480 4:4:4 8-bit, 2 slices", 480, 832, 3, 8, 2, 0))
+
+
+def phase_deblock_vs_plain(derrs: list) -> None:
+    """The deblock kernel against its plain version on fuzzed grids
+    (ops/cuda/deblock.random_inputs: every bS, QP 0..127, filter lengths
+    {1, 2, 3, 5, 7} on neighbouring cells, so write windows overlap;
+    slice offsets past both ends of the tables) over blocky planes, CTU
+    64, bit-equal; per case the kernel's device time (torch.profiler, 50
+    calls of 2 launches), the plain version's and the bound."""
+    import torch
+
+    from vvdec_tpu_torch.ops.cuda.deblock import (deblock_dense_cuda,
+                                                  deblock_dense_ref,
+                                                  random_inputs)
+    print(f"[kernel] deblock_dense_cuda vs deblock_dense_ref, fuzzed grids "
+          f"with overlapping windows, bit-equal; ms per call (2 launches): "
+          f"device time of deblock_kernel and of the plain version's "
+          f"kernels (torch.profiler), bound of one read and one write of "
+          f"each plane")
+    for i, (label, h, w, cfmt, bd, n_sl, frames) in enumerate(
+            DEBLOCK_SHAPES):
+        planes, grids, si, sltab, kw = random_inputs(
+            100 + i, h, w, cfmt=cfmt, bd=bd, n_sl=n_sl, frames=frames)
+
+        def card(a):
+            return None if a is None else torch.from_numpy(a).cuda()
+        rec = dict(planes=[card(p) for p in planes],
+                   grids=[card(g) for g in grids], si=card(si),
+                   sltab=card(sltab), kw=dict(kw, ctu=64))
+        got = run_deblock(deblock_dense_cuda, rec)
+        want = run_deblock(deblock_dense_ref, rec)
+        torch.cuda.synchronize()
+        err = max(int((a - b).abs().max()) for a, b in zip(got, want))
+        derrs.append(err)
+        fail_unless(err == 0, f"deblock {label}: max |err| {err}")
+        changed = sum(int((a != b).sum()) for a, b in zip(got,
+                                                          rec["planes"]))
+        k_ms = device_ms(lambda: run_deblock(deblock_dense_cuda, rec), 50,
+                         "deblock_kernel", launches=2)
+        p_ms = trace_device_ms(lambda: run_deblock(deblock_dense_ref, rec))
+        b_ms = deblock_work(rec)[0] / HBM_BYTES_PER_S * 1e3
+        print(f"[kernel] deblock {label}: {changed} samples changed; kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.6f} ms "
+              f"(bytes); bit-equal")
 
 
 class WavefrontLog:
@@ -952,7 +1166,7 @@ def frame_times(recorded, n_frames: int) -> dict:
                 itx_bound_int32_f32_ms=b1_ms, itx_bound_int32_f32_by=by1)
 
 
-def phase_main_path(errs: list, werrs: list) -> dict:
+def phase_main_path(errs: list, werrs: list, derrs: list) -> dict:
     from vvdec_tpu_torch.streams import (HEADLINE_MD5, HEADLINE_STREAM_KW,
                                          headline_stream)
 
@@ -967,12 +1181,19 @@ def phase_main_path(errs: list, werrs: list) -> dict:
     # path gives them and counts the TUs of the PyTorch residual paths
     census = {"transform skip": 0, "lfnst": 0, "scaling list": 0}
     wf = WavefrontLog(keep=n_frames)
-    recorded = recording_decode(stream, "main", census, wavefront=wf)
+    db = DeblockLog(keep=n_frames)
+    recorded = recording_decode(stream, "main", census, wavefront=wf,
+                                deblock=db)
     fail_unless(len(recorded) == n_frames, f"the warm-up decode made "
                 f"{len(recorded)} itx_frame_cuda calls for {n_frames} "
                 f"frames")
     res = timed_decode(stream, n_frames, HEADLINE_MD5, "main")
     check_frames(recorded, errs, "main")
+    check_deblock(db.recorded, derrs, "main")
+    fail_unless(len(db.recorded) == n_frames, f"the warm-up decode made "
+                f"{len(db.recorded)} deblock calls for {n_frames} frames")
+    deblock = deblock_times(db.recorded, "main")
+    del db
     times = frame_times(recorded, n_frames)
     rows = times.pop("rows")
     print(f"[main] TUs per frame: kernel {sum(map(len, rows)) / n_frames:.1f}"
@@ -1003,10 +1224,11 @@ def phase_main_path(errs: list, werrs: list) -> dict:
                 census_per_frame=dict(
                     kernel=sum(map(len, rows)) / n_frames,
                     **{k: v / n_frames for k, v in census.items()}),
-                **times, shapes=shapes, stages_ms_per_frame=stages, **wave)
+                **times, **deblock, shapes=shapes,
+                stages_ms_per_frame=stages, **wave)
 
 
-def phase_lmcs(errs: list, werrs: list) -> dict:
+def phase_lmcs(errs: list, werrs: list, derrs: list) -> dict:
     """The intra LMCS stream, decoded as the headline is, its ITX inputs
     held to the plain version."""
     from vvdec_tpu_torch.streams import STREAMS
@@ -1017,12 +1239,14 @@ def phase_lmcs(errs: list, werrs: list) -> dict:
     print(f"[{name}] stream 832x480 x {n_frames} frames, {len(stream)} "
           f"bytes, made in {time.perf_counter() - t0:.1f} s")
     wf = WavefrontLog(keep=1)
-    recorded = recording_decode(stream, name, wavefront=wf)
+    db = DeblockLog(keep=n_frames)
+    recorded = recording_decode(stream, name, wavefront=wf, deblock=db)
     fail_unless(len(recorded) == n_frames, f"{name}: the warm-up decode "
                 f"made {len(recorded)} itx_frame_cuda calls for {n_frames} "
                 f"frames")
     res = timed_decode(stream, n_frames, md5_pin, name)
     check_frames(recorded, errs, name)
+    check_deblock(db.recorded, derrs, name)
     stages = timed_decode(stream, n_frames, md5_pin, name,
                           profile=True)["stages_ms_per_frame"]
     res.update(stages_ms_per_frame=stages,
@@ -1161,7 +1385,7 @@ def wavefront_checks(stream: bytes, n_frames: int, stages: dict,
         sweep))
 
 
-def phase_ra(errs: list, werrs: list) -> dict:
+def phase_ra(errs: list, werrs: list, derrs: list) -> dict:
     """The RA stream: decoded as the inter streams are, with an empty
     fallback census; the profiled decode must show the DMVR and BDOF
     stages, and the warm-up decode counts their CUs and subblocks."""
@@ -1174,12 +1398,15 @@ def phase_ra(errs: list, werrs: list) -> dict:
           f"bytes, made in {time.perf_counter() - t0:.1f} s")
     refined: list = []
     wf = WavefrontLog(keep=1)
-    recorded = recording_decode(stream, name, refined=refined, wavefront=wf)
+    db = DeblockLog(keep=n_frames)
+    recorded = recording_decode(stream, name, refined=refined, wavefront=wf,
+                                deblock=db)
     fail_unless(len(recorded) == n_frames, f"{name}: the warm-up decode "
                 f"made {len(recorded)} itx_frame_cuda calls for {n_frames} "
                 f"frames")
     res = timed_decode(stream, n_frames, md5_pin, name)
     check_frames(recorded, errs, name)
+    check_deblock(db.recorded, derrs, name)
     for poc, dmvr_cus, dmvr_sub, bdof_cus, bdof_reg in refined:
         print(f"[{name}] POC {poc}: DMVR {dmvr_cus} CUs, {dmvr_sub} "
               f"subblocks; standalone BDOF {bdof_cus} CUs, {bdof_reg} "
@@ -1195,7 +1422,7 @@ def phase_ra(errs: list, werrs: list) -> dict:
     return res
 
 
-def phase_host_recon(errs: list, werrs: list) -> dict:
+def phase_host_recon(errs: list, werrs: list, derrs: list) -> dict:
     """The inter-LMCS stream: the IDR on the device, the two B pictures
     (inter LMCS) reconstructed on the host and filtered on the device.
     The pinned MD5 and census, one ITX launch per device picture, and the
@@ -1209,13 +1436,16 @@ def phase_host_recon(errs: list, werrs: list) -> dict:
     print(f"[{name}] stream 832x480 x {n_frames} frames, {len(stream)} "
           f"bytes, made in {time.perf_counter() - t0:.1f} s")
     wf = WavefrontLog(keep=1)
-    recorded = recording_decode(stream, name, wavefront=wf)
+    db = DeblockLog(keep=n_frames)
+    recorded = recording_decode(stream, name, wavefront=wf, deblock=db)
     fail_unless(len(recorded) == device_frames, f"{name}: the warm-up "
                 f"decode made {len(recorded)} itx_frame_cuda calls for "
                 f"{device_frames} device pictures")
     res = timed_decode(stream, n_frames, md5_pin, name,
                        census=LMCS_INTER_CENSUS, device_frames=device_frames)
     check_frames(recorded, errs, name)
+    # the host pictures too: the device filters every picture
+    check_deblock(db.recorded, derrs, name)
     stages = timed_decode(stream, n_frames, md5_pin, name,
                           census=LMCS_INTER_CENSUS,
                           device_frames=device_frames,
@@ -1280,7 +1510,7 @@ def phase_device_busy() -> dict:
                 device_ops_per_frame=len(spans) / n_frames)
 
 
-def phase_inter(errs: list, werrs: list) -> dict:
+def phase_inter(errs: list, werrs: list, derrs: list) -> dict:
     """The inter-LD and inter-LDB tools streams, each decoded as the
     tool-set streams are; the ITX kernel's per-frame times on the
     inter-LD frames."""
@@ -1293,12 +1523,15 @@ def phase_inter(errs: list, werrs: list) -> dict:
         print(f"[{name}] stream 832x480 x {n_frames} frames, {len(stream)} "
               f"bytes, made in {time.perf_counter() - t0:.1f} s")
         wf = WavefrontLog(keep=1)
-        recorded = recording_decode(stream, name, wavefront=wf)
+        db = DeblockLog(keep=n_frames)
+        recorded = recording_decode(stream, name, wavefront=wf, deblock=db)
         fail_unless(len(recorded) == n_frames, f"{name}: the warm-up decode "
                     f"made {len(recorded)} itx_frame_cuda calls for "
                     f"{n_frames} frames")
         res = timed_decode(stream, n_frames, md5_pin, name)
         check_frames(recorded, errs, name)
+        check_deblock(db.recorded, derrs, name)
+        del db
         if name == "inter-LD":
             times = frame_times(recorded, n_frames)
             rows = times.pop("rows")
@@ -1395,8 +1628,9 @@ def api_decode(stream: bytes, n_frames: int, md5_pin: str, label: str,
     """api.Decoder(DecoderParams(threads=...)) on CUDA fed access unit by
     access unit, then flushed, recording the ITX kernel's inputs, with
     the kernels' launch counts set to 0 just before and read just after.
-    Fails unless the YUV has its pinned MD5, the census is empty and the
-    ITX kernel ran once per frame.  With `conceal` (a CONCEAL_CASES
+    Fails unless the YUV has its pinned MD5, the census is empty, the
+    ITX kernel ran once per frame and the deblock kernel twice per
+    picture its wrapper filtered.  With `conceal` (a CONCEAL_CASES
     entry) the decoder conceals, and the output pictures, their error
     flags, error_pictures and the grey pictures must be the pinned ones,
     with one ITX launch per picture that is not grey."""
@@ -1405,16 +1639,19 @@ def api_decode(stream: bytes, n_frames: int, md5_pin: str, label: str,
 
     import vvdec_tpu_torch.ops.frame_device as frame_device
     from vvdec_tpu_torch.api import Decoder, DecoderParams
+    from vvdec_tpu_torch.ops.cuda.deblock import deblock_dense_cuda
     from vvdec_tpu_torch.ops.cuda.intra import intra_wavefront_cuda
     from vvdec_tpu_torch.ops.cuda.itx import itx_batch_cuda, itx_frame_cuda
     aus = access_units(stream)
     log = WavefrontLog()
+    dlog = DeblockLog()
     itx_frame_cuda.launches = 0
     itx_batch_cuda.launches = 0
     intra_wavefront_cuda.launches = 0
+    deblock_dense_cuda.launches = 0
     frame_device.itx_frame_cuda = itx_recorder(recorded)
     try:
-        with wavefront_recording(log):
+        with wavefront_recording(log), deblock_recording(dlog):
             t0 = time.perf_counter()
             dec = Decoder(DecoderParams(
                 threads=threads, err_handling="conceal" if conceal else
@@ -1433,6 +1670,7 @@ def api_decode(stream: bytes, n_frames: int, md5_pin: str, label: str,
         frame_device.itx_frame_cuda = itx_frame_cuda
     launches = itx_frame_cuda.launches
     intra_launches = intra_wavefront_cuda.launches
+    deblock_launches = deblock_dense_cuda.launches
     md5 = yuv_md5([f.planes for f in frames])
     census = dec.get_fallback_census()
     errors = tuple(f.poc for f in frames if f.picture.error)
@@ -1448,7 +1686,8 @@ def api_decode(stream: bytes, n_frames: int, md5_pin: str, label: str,
           f"{first:.3f} s; itx launches {launches} (itx_batch_cuda "
           f"{itx_batch_cuda.launches}); intra_wavefront launches "
           f"{intra_launches} for {log.pictures} pictures with intra units; "
-          f"md5 {md5}; census {census}"
+          f"deblock launches {deblock_launches} for {dlog.pictures} "
+          f"pictures; md5 {md5}; census {census}"
           + (f"; error POCs {errors}, error_pictures {n_err}, grey {grey}"
              if conceal else ""))
     fail_unless(len(frames) == n_frames, f"{label}: {len(frames)} frames, "
@@ -1467,8 +1706,12 @@ def api_decode(stream: bytes, n_frames: int, md5_pin: str, label: str,
     fail_unless(intra_launches == log.pictures and intra_launches > 0,
                 f"{label}: {intra_launches} intra_wavefront launches for "
                 f"{log.pictures} pictures with intra units")
+    fail_unless(deblock_launches == 2 * dlog.pictures > 0, f"{label}: "
+                f"{deblock_launches} deblock launches for {dlog.pictures} "
+                f"deblocked pictures")
     return dict(fps=len(frames) / dt, decode_s=dt, first_frame_s=first,
-                launches=launches, intra_launches=intra_launches, md5=md5)
+                launches=launches, intra_launches=intra_launches,
+                deblock_launches=deblock_launches, md5=md5)
 
 
 def phase_api(errs: list) -> dict:
@@ -1490,8 +1733,8 @@ def phase_api(errs: list) -> dict:
         print(f"[api] headline threads={threads}: frames/s "
               f"{[round(r['fps'], 3) for r in sel]}, first-frame delay "
               f"{[round(r['first_frame_s'], 3) for r in sel]} s")
-    return dict(runs=runs, launches=sum(r["launches"] for r in runs),
-                intra_launches=sum(r["intra_launches"] for r in runs))
+    return dict(runs=runs, **{k: sum(r[k] for r in runs) for k in (
+        "launches", "intra_launches", "deblock_launches")})
 
 
 def phase_conceal(errs: list) -> dict:
@@ -1513,10 +1756,9 @@ def phase_conceal(errs: list) -> dict:
     after = api_decode(one, 1, HEADLINE_FIRST_MD5, "after concealment",
                        recorded)
     check_frames(recorded, errs, "after concealment")
-    return dict(cases=runs, after=after, launches=after["launches"] + sum(
-        r["launches"] for r in runs.values()),
-        intra_launches=after["intra_launches"] + sum(
-            r["intra_launches"] for r in runs.values()))
+    return dict(cases=runs, after=after, **{
+        k: after[k] + sum(r[k] for r in runs.values()) for k in (
+            "launches", "intra_launches", "deblock_launches")})
 
 
 def phase_cli() -> dict:
@@ -1656,7 +1898,9 @@ def phase_multidevice(errs: list) -> dict:
     import torch
 
     import vvdec_tpu_torch.ops.frame_device as frame_device
+    import vvdec_tpu_torch.ops.sharded_chain as sharded_chain
     from vvdec_tpu_torch.ops import device_pipeline as dp
+    from vvdec_tpu_torch.ops.cuda.deblock import deblock_dense_cuda
     from vvdec_tpu_torch.ops.cuda.itx import itx_frame_cuda
     from vvdec_tpu_torch.parallel import dryrun
     from vvdec_tpu_torch.parallel.distributed import decode_annexb_spawned
@@ -1675,10 +1919,29 @@ def phase_multidevice(errs: list) -> dict:
         fail_unless(len(items) == 4, f"captured {len(items)} pictures")
         keys = [dp._frame_key_arrays(cs, [tuple(p.shape) for p in pl])[0]
                 for cs, pl in items]
-        fr = dryrun.sharded_chain_parity(
-            items[:2], make_decode_mesh(4, rows=2, devices=[card] * 4))
-        row = dryrun.sharded_chain_parity(
-            items[:1], Mesh(np.array([card] * 4), ("row",)))
+        # every band's deblock goes through the kernel's wrapper
+        bands: list = []
+
+        def band_deblock(planes, *a, **k):
+            before = deblock_dense_cuda.launches
+            out = deblock_dense_cuda(planes, *a, **k)
+            bands.append((tuple(planes[0].shape),
+                          deblock_dense_cuda.launches - before))
+            return out
+
+        sharded_chain.deblock_dense_cuda = band_deblock
+        try:
+            fr = dryrun.sharded_chain_parity(
+                items[:2], make_decode_mesh(4, rows=2, devices=[card] * 4))
+            row = dryrun.sharded_chain_parity(
+                items[:1], Mesh(np.array([card] * 4), ("row",)))
+        finally:
+            sharded_chain.deblock_dense_cuda = deblock_dense_cuda
+        print(f"[multi] (a) deblock_dense_cuda on the bands: "
+              f"{len(bands)} calls, {sum(n for _, n in bands)} launches, "
+              f"bands {sorted(set(b for b, _ in bands))}")
+        fail_unless(len(bands) == 2 * 2 + 4 and all(n == 2 for _, n in bands),
+                    f"the sharded chains' deblock calls {bands}")
         h, ctu = items[0][1][0].shape[0], items[0][0].sps.ctu_size
         print(f"[multi] (a) SAO/ALF (ALF bank counts "
               f"{[k[16] for k in keys]}): 2 pictures over ('frame', 'row') "
@@ -1687,10 +1950,14 @@ def phase_multidevice(errs: list) -> dict:
               f"{-(-h // (4 * ctu)) * ctu * 4}) in "
               f"{row['seconds'] * 1e3:.1f} ms, bit-equal to the whole-frame "
               f"chain")
-        out["sharded"] = dict(frame_row=fr, row=row)
+        out["sharded"] = dict(frame_row=fr, row=row, deblock_bands=bands)
 
         # (b) the batched chain
+        before = deblock_dense_cuda.launches
         batch = dp.filter_frames_device_batch(items)
+        batch_launches = deblock_dense_cuda.launches - before
+        fail_unless(batch_launches == 2, f"the batched chain of 4 pictures "
+                    f"made {batch_launches} deblock launches, not 2")
         for i, (pf, (cs, planes)) in enumerate(zip(batch, items)):
             for c, (a, b) in enumerate(zip(
                     pf.resolve(), dp.filter_frame_device(cs, planes)
@@ -1710,11 +1977,13 @@ def phase_multidevice(errs: list) -> dict:
         ms_batch = cuda_ms(run_batch, 3)
         ms_frames = cuda_ms(run_frames, 3)
         print(f"[multi] (b) filter_frames_device_batch of 4 pictures: "
+              f"{batch_launches} deblock launches; "
               f"{k_batch} device kernels/copies against 4 x {k_one} = "
               f"{4 * k_one} for 4 per-frame chains; {ms_batch:.2f} ms against"
               f" {ms_frames:.2f} ms per 4 pictures (stream time); bit-equal")
         out["batch"] = dict(kernels=k_batch, kernels_one=k_one,
-                            ms=ms_batch, ms_per_frame_chains=ms_frames)
+                            ms=ms_batch, ms_per_frame_chains=ms_frames,
+                            deblock_launches=batch_launches)
 
         # (c) the device-resident DPB
         dpb = dryrun.device_dpb_parity(built("inter-LD"), [card] * 4, n=4)
@@ -1765,7 +2034,8 @@ def phase_multidevice(errs: list) -> dict:
     fail_unless(sum(r["itx_launches"] for r in reports) == n_frames,
                 f"the ranks' ITX launches {reports}")
     out["ranks"] = dict(reports=reports, seconds=dt, md5=md5)
-    return dict(out, launches=launches)
+    return dict(out, launches=launches, deblock_launches=sum(
+        n for _, n in bands) + batch_launches)
 
 
 # phase 12: the streams (name in streams.STREAMS or a builder here) and
@@ -2118,21 +2388,24 @@ def itx_per_frame(recorded, label: str, verbose: bool, reps: int = 11
                 itx_call_ms=mean["call_ms"], itx_bound_ms=mean["bound_ms"])
 
 
-def phase_bench_configs(errs: list, werrs: list) -> dict:
+def phase_bench_configs(errs: list, werrs: list, derrs: list) -> dict:
     """13. The rest of bench.py's configurations: dense q27, max-density
     q22, all eight frames of tool-rich and SAO/ALF, SAO/ALF 1920x1080 and
-    inter-LD 1920x1080, made by the background builders.  Per stream one
-    decode, through a StreamDecoder with the stage profiler on, that
-    records the ITX kernel's inputs and the intra wavefront's (of the
-    first picture, of every 1080p IDR picture) in host memory: the pinned
-    MD5 (and the 4-frame pin on an 8-frame stream's first 4 frames), an
-    empty census, one itx_frame_cuda launch per frame, one
-    intra_wavefront_cuda launch per picture with intra units, the stage
-    split, the intra steps a frame, frames/s and the card's peak
-    allocated memory.  The ITX kernel is held to its plain version on
+    inter-LD 1920x1080, made by the background builders.  Per stream two
+    decodes through a StreamDecoder: the first records in host memory
+    the ITX kernel's inputs, the intra wavefront's (of the first picture,
+    of every 1080p IDR picture) and the deblock's (every picture); the
+    second, with the stage profiler on, records nothing and gives the
+    stage split, the intra steps a frame, frames/s and the card's peak
+    allocated memory.  Each must give the pinned MD5 (and the 4-frame
+    pin on an 8-frame stream's first 4 frames), an empty census, one
+    itx_frame_cuda launch per frame, one intra_wavefront_cuda launch per
+    picture with intra units and two deblock launches per picture.  The ITX kernel is held to its plain version on
     every recorded frame and timed (itx_per_frame) per frame on the
     PER_FRAME_ITX streams and over all the tool-rich frames; the intra
-    wavefront kernel on every recorded picture (check_wavefront)."""
+    wavefront kernel on every recorded picture (check_wavefront); the
+    deblock kernel on every picture's pre-deblock planes (check_deblock),
+    timed per frame on the 1080p streams (deblock_times)."""
     import torch
 
     from vvdec_tpu_torch.streams import (BENCH_STREAMS, PREFIXES, STREAMS,
@@ -2152,16 +2425,21 @@ def phase_bench_configs(errs: list, werrs: list) -> dict:
         # every picture of SAO/ALF 1080p is an IDR; inter-LD 1080p's first
         wf = WavefrontLog(keep=n_frames if name == "SAO/ALF 1080p" else 1,
                           host=True)
+        db = DeblockLog(keep=n_frames, host=True)
+        # the first decode records the kernels' inputs in host memory;
+        # the stage split, frames/s and peak memory come from the second,
+        # which records nothing
+        timed_decode(stream, n_frames, md5_pin, name, size=(w, h),
+                     recorded=recorded, prefix=prefix_pins.get(name),
+                     wavefront=wf, deblock=db)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         res = timed_decode(stream, n_frames, md5_pin, name, size=(w, h),
-                           recorded=recorded,
-                           prefix=prefix_pins.get(name), profile=True,
-                           wavefront=wf)
+                           prefix=prefix_pins.get(name), profile=True)
         peak = torch.cuda.max_memory_allocated()
         steps = res["stages_ms_per_frame"]["intra steps a frame"]
         print(f"[{name}] {steps:.1f} intra steps a frame; card memory: peak "
-              f"allocated {peak / 2**20:.1f} MiB in the decode")
+              f"allocated {peak / 2**20:.1f} MiB in the profiled decode")
         res.update(bytes=len(stream), build_s=build_s, peak_allocated=peak)
         fail_unless(len(recorded) == n_frames, f"{name}: the decode made "
                     f"{len(recorded)} itx_frame_cuda calls for {n_frames} "
@@ -2169,6 +2447,10 @@ def phase_bench_configs(errs: list, werrs: list) -> dict:
         t0 = time.perf_counter()
         recorded = [on_card(r) for r in recorded]
         check_frames(recorded, errs, name)
+        check_deblock(db.recorded, derrs, name)
+        if w == 1920:
+            res.update(deblock_times(db.recorded, name))
+        del db
         if name in PER_FRAME_ITX or name == "tool-rich 8":
             res.update(itx_per_frame(recorded, name,
                                      verbose=name in PER_FRAME_ITX))
@@ -2220,14 +2502,16 @@ def main(argv=None) -> int:
         # the one-group comparisons of phase 3 count for both entries
         errs_kernel: list = []
         timed("kernel", phase_kernel_vs_plain, errs_kernel)
+        derrs: list = []   # the deblock kernel's comparisons
+        timed("deblock kernel", phase_deblock_vs_plain, derrs)
         timed("stream builds", wait_bench_builds)
         errs += errs_kernel
         werrs: list = []   # the intra wavefront kernel's comparisons
-        main_path = timed("main", phase_main_path, errs, werrs)
-        lmcs = timed("LMCS", phase_lmcs, errs, werrs)
-        inter = timed("inter", phase_inter, errs, werrs)
-        ra = timed("RA", phase_ra, errs, werrs)
-        host = timed("host recon", phase_host_recon, errs, werrs)
+        main_path = timed("main", phase_main_path, errs, werrs, derrs)
+        lmcs = timed("LMCS", phase_lmcs, errs, werrs, derrs)
+        inter = timed("inter", phase_inter, errs, werrs, derrs)
+        ra = timed("RA", phase_ra, errs, werrs, derrs)
+        host = timed("host recon", phase_host_recon, errs, werrs, derrs)
         main_path["profile"] = timed("profile", phase_device_busy)
         inter["profile P picture"] = timed("profile P", phase_inter_busy)
         surface = dict(api=timed("public surface: api", phase_api, errs),
@@ -2240,7 +2524,7 @@ def main(argv=None) -> int:
         stages = timed("frame stages", phase_frame_stages, batch_errs)
         errs += batch_errs
         bench = timed("bench configurations", phase_bench_configs, errs,
-                      werrs)
+                      werrs, derrs)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2257,6 +2541,12 @@ def main(argv=None) -> int:
                                       inter["inter-LDB tools"], ra, host,
                                       surface["api"], surface["conceal"],
                                       *bench.values()))
+    # the same decodes', and phase 11's sharded and batched chains'
+    deblock_launches = sum(
+        r["deblock_launches"] for r in (main_path, lmcs, inter["inter-LD"],
+                                        inter["inter-LDB tools"], ra, host,
+                                        surface["api"], surface["conceal"],
+                                        multi, *bench.values()))
     # the headline's first picture, the one both versions were timed on
     head = main_path["intra_kernel"][0]
     kernels = [dict(
@@ -2280,7 +2570,15 @@ def main(argv=None) -> int:
         launches=intra_launches, max_abs_err=max(werrs),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=None,
-        floor_ms=head["floor_ms"], phases=head["phases"])]
+        floor_ms=head["floor_ms"], phases=head["phases"]), dict(
+        name="deblock", route="cuda", source="vvdec_tpu_torch/csrc/deblock.cu",
+        replaces="vvdec_tpu/ops/device_pipeline.py:634",
+        launches=deblock_launches, max_abs_err=max(derrs),
+        ms=main_path["deblock_ms"], plain_ms=main_path["deblock_plain_ms"],
+        bound_ms=main_path["deblock_bound_ms"],
+        bound_by=main_path["deblock_bound_by"], library_ms=None,
+        call_ms=main_path["deblock_call_ms"],
+        bound_two_pass_ms=main_path["deblock_bound_two_pass_ms"])]
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kernels=kernels, main_path=main_path,

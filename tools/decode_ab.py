@@ -13,7 +13,8 @@ own kernels): per stream one decode to warm up, one timed decode and one
 with the stage profiler on, through StreamDecoder on CUDA (push, flush,
 synchronise), each held to the stream's pinned MD5.  Prints, per turn
 and stream, frames/s of the timed and profiled decodes and the profiled
-"intra" stages in ms per frame; then the card's name and power limit.
+"intra" and "filter" stages in ms per frame; then the card's name and
+power limit.
 Compare the two checkouts only within one run: hosts differ from run to
 run.
 """
@@ -84,10 +85,10 @@ def turn(root: str, stream_dir: str) -> dict:
             fps_prof = decode()
         finally:
             profiler.enabled = False
-        intra = {k: v / n_frames * 1e3 for k, v in profiler.totals.items()
-                 if k.startswith("intra")}
+        stages = {k: v / n_frames * 1e3 for k, v in profiler.totals.items()
+                  if k.startswith(("intra", "filter"))}
         out[name] = dict(fps=fps, fps_profiled=fps_prof,
-                         intra_ms_per_frame=intra)
+                         stages_ms_per_frame=stages)
     return out
 
 
@@ -127,11 +128,11 @@ def main(argv=None) -> int:
                 res = json.loads(r.stdout.strip().splitlines()[-1])
                 results.append(dict(checkout=label, root=root, **res))
                 for name, v in res.items():
-                    intra = ", ".join(f"{k} {ms:.3f}" for k, ms in sorted(
-                        v["intra_ms_per_frame"].items()))
+                    stages = ", ".join(f"{k} {ms:.3f}" for k, ms in sorted(
+                        v["stages_ms_per_frame"].items()))
                     print(f"[{label}] {name}: {v['fps']:.2f} frames/s, "
                           f"profiled {v['fps_profiled']:.2f}; ms per frame: "
-                          f"{intra}", flush=True)
+                          f"{stages}", flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()

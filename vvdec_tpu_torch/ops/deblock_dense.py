@@ -14,6 +14,10 @@ The edge padding is built from clamped column indices: torch's
 
 Parity targets: LoopFilter::xEdgeFilterLuma / xEdgeFilterChroma
 (LoopFilter.cpp:851-1210).
+
+On the card the filter chain deblocks with the kernel csrc/deblock.cu
+(ops/cuda/deblock.deblock_dense_cuda); these cores, composed by
+ops/cuda/deblock.deblock_dense_ref, are its plain version.
 """
 
 from __future__ import annotations

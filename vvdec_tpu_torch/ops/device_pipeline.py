@@ -4,6 +4,9 @@ classification) and CC-ALF, then the 10-bit output pack, with one packed
 int16 parameter upload and one packed readback per frame.
 
 Port of vvdec_tpu/ops/device_pipeline.py (the single-frame chain).
+The deblock runs as the hand-written kernel csrc/deblock.cu
+(ops/cuda/deblock.deblock_dense_cuda: one launch per direction a
+picture, or a stack of pictures; its plain version on CPU tensors).
 Parameters are uploaded as compact per-CTU tensors and expanded to
 per-pixel maps on the device.  The stages compute what the reference's
 do, not always as it does: the ALF classification evaluates its
@@ -23,12 +26,8 @@ import functools
 import numpy as np
 import torch
 
-from vvdec_tpu_torch.ops.deblock_dense import (
-    deblock_chroma_dense_core,
-    deblock_luma_dense_core,
-    pack_chroma_grid,
-    pack_luma_grid,
-)
+from vvdec_tpu_torch.ops.cuda.deblock import deblock_dense_cuda
+from vvdec_tpu_torch.ops.deblock_dense import pack_chroma_grid, pack_luma_grid
 from vvdec_tpu_torch.ops.intra_device import _jidx
 from vvdec_tpu_torch.ops.pipeline import _alf_diamond_dense_core
 from vvdec_tpu_torch.utils.trace import profiler
@@ -360,12 +359,21 @@ def _flat_pack(key, arrays: dict) -> np.ndarray:
     return np.concatenate(parts)
 
 
-def _flat_unpack(key, flat):
+# the deblock's fields, which the kernel reads in their packed int16
+_DB_FIELDS = ("db_y", "db_cb", "db_cr", "db_si", "db_sltab")
+
+
+def _flat_unpack(key, flat, names=None):
+    """The fields of the packed vector (or of only `names`) as tensors,
+    int32 but for the deblock's (_DB_FIELDS, views of the int16 upload);
+    a leading frame axis of `flat` leads every field."""
     out = {}
     pos = 0
     for name, shape in _flat_layout(key):
         n = int(np.prod(shape))
-        out[name] = flat[pos:pos + n].reshape(shape).to(torch.int32)
+        if names is None or name in names:
+            a = flat[..., pos:pos + n].reshape(flat.shape[:-1] + shape)
+            out[name] = a if name in _DB_FIELDS else a.to(torch.int32)
         pos += n
     return out
 
@@ -382,37 +390,16 @@ def _chain_fn(key):
     vb_luma_h, vb_luma_pos = ctu, ctu - 4
     vb_chma_h = ctu // sub_h
     vb_chma_pos = vb_chma_h - 2
+    rest_fields = [n for n, _ in _flat_layout(key) if n not in _DB_FIELDS]
 
-    def deblock(planes, P, dev: str):
-        """In place on the list: V then H edges, luma then chroma."""
-        db_y = [deblock_luma_dense_core(h, w, bd, ctu, False, n_sl, dev),
-                deblock_luma_dense_core(w, h, bd, ctu, True, n_sl, dev)]
-        db_c = []
-        if num_comp > 1:
-            ctu_c = ctu // sub_h
-            for d in range(2):
-                L = 4 // (sub_h if d == 0 else sub_w)
-                fy = 4 // (sub_h if d == 0 else sub_w)
-                fx = 4 // (sub_w if d == 0 else sub_h)
-                dims = (hc, wc) if d == 0 else (wc, hc)
-                db_c.append([
-                    deblock_chroma_dense_core(
-                        dims[0], dims[1], bd, ctu_c, L, d == 1, fy, fx,
-                        n_sl, comp, dev) for comp in (1, 2)])
-        sltab = P["db_sltab"]
-        si = P["db_si"] if n_sl > 1 else \
-            torch.zeros((h // 4, w // 4), dtype=torch.int32,
-                        device=planes[0].device)
-        planes[0] = db_y[0](planes[0], P["db_y"][0], si, sltab)
-        if num_comp > 1:
-            for k, nm in enumerate(("db_cb", "db_cr")):
-                planes[1 + k] = db_c[0][k](planes[1 + k], P[nm][0], si,
-                                           sltab)
-        planes[0] = db_y[1](planes[0].T, P["db_y"][1].T, si.T, sltab).T
-        if num_comp > 1:
-            for k, nm in enumerate(("db_cb", "db_cr")):
-                planes[1 + k] = db_c[1][k](planes[1 + k].T, P[nm][1].T,
-                                           si.T, sltab).T
+    def deblock(planes, P):
+        """In place on the list: V then H edges of every component, one
+        kernel launch each (a leading frame axis: still one)."""
+        names = ("db_y", "db_cb", "db_cr")[:num_comp]
+        planes[:num_comp] = deblock_dense_cuda(
+            planes[:num_comp], [P[nm] for nm in names],
+            P["db_si"] if n_sl > 1 else None, P["db_sltab"], bd=bd, ctu=ctu,
+            sub_w=sub_w, sub_h=sub_h, n_sl=n_sl)
 
     def sao(planes, P):
         """In place on the list, each plane with its CTU grid."""
@@ -478,14 +465,25 @@ def _chain_fn(key):
                                    P["cc_ctu"][k])
         return out
 
-    def chain(planes, flat):
+    def deblocked(planes, flat):
+        """The planes after the deblock (none without it); planes and
+        flat may carry a leading frame axis."""
+        planes = list(planes)
+        if db_on:
+            dev = str(planes[0].device)
+            with timed_stage("filter: params", dev):
+                P = _flat_unpack(key, flat, _DB_FIELDS)
+            with timed_stage("filter: deblock", dev):
+                deblock(planes, P)
+        return planes
+
+    def filters(planes, flat):
+        """SAO, ALF / CC-ALF and the pack after the deblock, one picture
+        (vmapped by the batched chain)."""
         planes = list(planes)
         dev = str(planes[0].device)
         with timed_stage("filter: params", dev):
-            P = _flat_unpack(key, flat)
-        if db_on:
-            with timed_stage("filter: deblock", dev):
-                deblock(planes, P, dev)
+            P = _flat_unpack(key, flat, rest_fields)
         if sao_on:
             with timed_stage("filter: sao", dev):
                 sao(planes, P)
@@ -498,6 +496,11 @@ def _chain_fn(key):
             packed = pack(out[:num_comp])
         return tuple(out[:num_comp]), packed
 
+    def chain(planes, flat):
+        return filters(deblocked(planes, flat), flat)
+
+    chain.deblocked = deblocked
+    chain.filters = filters
     return chain
 
 
@@ -821,10 +824,18 @@ def batch_key(per, at: int):
 @functools.lru_cache(maxsize=None)
 def _chain_fn_batched(key):
     """The chain of `_chain_fn(key)` over a leading frame axis in one
-    pass (torch.func.vmap): run(planes, flat) with planes [F, h, w] per
-    component and flat [F, n] -> (filtered planes [F, ...], packed
-    [F, n_bytes])."""
-    return torch.func.vmap(_chain_fn(key))
+    pass: run(planes, flat) with planes [F, h, w] per component and flat
+    [F, n] -> (filtered planes [F, ...], packed [F, n_bytes]).  The
+    deblock runs on the stacked planes (one kernel launch per direction
+    for the F pictures; a ctypes launch cannot run under vmap), the rest
+    of the chain under torch.func.vmap."""
+    chain = _chain_fn(key)
+    rest = torch.func.vmap(chain.filters)
+
+    def run(planes, flat):
+        return rest(tuple(chain.deblocked(planes, flat)), flat)
+
+    return run
 
 
 def filter_frames_device_batch(items) -> list[PendingFrame]:

@@ -41,11 +41,9 @@ import functools
 import numpy as np
 import torch
 
-from vvdec_tpu_torch.ops.deblock_dense import (
-    deblock_chroma_dense_core,
-    deblock_luma_dense_core,
-)
+from vvdec_tpu_torch.ops.cuda.deblock import deblock_dense_cuda
 from vvdec_tpu_torch.ops.device_pipeline import (
+    _DB_FIELDS,
     _alf_inputs,
     _ccalf_dense_core,
     _classify_dense,
@@ -151,20 +149,6 @@ def _shard_chain_core(skey, n_shards: int, device: str):
     vb_chma_pos = vb_chma_h - 2
     h4s, w4s = hs // 4, w // 4
 
-    if db_on:
-        db_y = [deblock_luma_dense_core(hs, w, bd, ctu, False, n_sl, device),
-                deblock_luma_dense_core(w, hs, bd, ctu, True, n_sl, device)]
-        db_c = []
-        if num_comp > 1:
-            for d in range(2):
-                L = 4 // (sub_h if d == 0 else sub_w)
-                fy = 4 // (sub_h if d == 0 else sub_w)
-                fx = 4 // (sub_w if d == 0 else sub_h)
-                dims = (hcs, wcs) if d == 0 else (wcs, hcs)
-                db_c.append([
-                    deblock_chroma_dense_core(
-                        dims[0], dims[1], bd, ctu_c, L, d == 1, fy, fx,
-                        n_sl, comp, device) for comp in (1, 2)])
     alf_luma_fn = _alf_diamond_dense_core(
         hs, w, bd, 12, vb_luma_h, vb_luma_pos, False, device) \
         if alf_luma else None
@@ -179,7 +163,9 @@ def _shard_chain_core(skey, n_shards: int, device: str):
         pos = 0
         for name, shape in layout:
             n = int(np.prod(shape))
-            out[name] = flat[pos:pos + n].reshape(shape).to(torch.int32)
+            a = flat[pos:pos + n].reshape(shape)
+            # the deblock kernel reads its grids in the packed int16
+            out[name] = a if name in _DB_FIELDS else a.to(torch.int32)
             pos += n
         return out
 
@@ -200,25 +186,16 @@ def _shard_chain_core(skey, n_shards: int, device: str):
         def gcslice(a, lead=0):
             return rows_of(a, idx * sh_ctu, gcs, lead)
 
-        # ---- deblocking ----
+        # ---- deblocking: the kernel on the haloed band ----
         if db_on:
-            sltab = Prm["db_sltab"]
-            si = g4slice(Prm["db_si"]) if n_sl > 1 else \
-                torch.zeros((h4s, w4s), dtype=torch.int32,
-                            device=planes[0].device)
-            gy = Prm["db_y"]
-            planes[0] = db_y[0](planes[0], g4slice(gy[0]), si, sltab)
-            if num_comp > 1:
-                for k, nm in enumerate(("db_cb", "db_cr")):
-                    planes[1 + k] = db_c[0][k](
-                        planes[1 + k], g4slice(Prm[nm][0]), si, sltab)
-            planes[0] = db_y[1](planes[0].T, g4slice(gy[1]).T, si.T,
-                                sltab).T
-            if num_comp > 1:
-                for k, nm in enumerate(("db_cb", "db_cr")):
-                    planes[1 + k] = db_c[1][k](
-                        planes[1 + k].T, g4slice(Prm[nm][1]).T, si.T,
-                        sltab).T
+            names = ("db_y", "db_cb", "db_cr")[:num_comp]
+            planes[:num_comp] = deblock_dense_cuda(
+                planes[:num_comp],
+                [rows_of(Prm[nm], idx * sh4, sh4 + 2 * c4, 1)
+                 for nm in names],
+                g4slice(Prm["db_si"]) if n_sl > 1 else None,
+                Prm["db_sltab"], bd=bd, ctu=ctu, sub_w=sub_w, sub_h=sub_h,
+                n_sl=n_sl)
         # ---- SAO ----
         if sao_on:
             row0_y = idx * sh - ctu
