@@ -618,9 +618,8 @@ def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
     with `prefix` (n, pin) the YUV of the first n frames must have the
     MD5 `pin` (the pin of the stream's first n pictures alone: a picture
     depends on none that follows); with `profile` the stage profiler is
-    on and the result holds the stage split (stage_split): the profiler
-    synchronises the device at the end of each device stage, so each
-    stage's time includes its device work."""
+    on and the result holds the stage split (stage_split): each device
+    stage's time runs to the end of its device work (CUDA events)."""
     import torch
 
     from vvdec_tpu_torch.decoder import StreamDecoder
@@ -707,7 +706,7 @@ def stage_split(n_frames: int, seconds: float, label: str,
     stages = {k: v / n_frames * 1e3 for k, v in profiler.totals.items()}
     fps = n_frames / seconds
     print(f"[{label}] profiled decode {seconds:.3f} s = {fps:.2f} frames/s;"
-          f" stage ms per frame (synchronised):")
+          f" stage ms per frame (with device work):")
     for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"[{label}]   {k:<26} {v:9.3f} ms in {profiler.counts[k]} "
               f"calls")
@@ -937,8 +936,8 @@ class WavefrontLog:
 
     def steps_by_class(self, n_frames: int) -> dict:
         """Steps a frame by mode class name."""
-        from vvdec_tpu_torch.ops.intra_device import STEP_STAGES
-        return {STEP_STAGES[mc].split(": ")[1]: n / n_frames
+        names = ("planar", "DC", "angular", "MIP", "CCLM", "CIIP")
+        return {names[mc]: n / n_frames
                 for mc, n in sorted(self.steps.items())}
 
 

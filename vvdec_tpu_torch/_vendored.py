@@ -9,6 +9,11 @@ variable names).  tests/test_torch_isolation.py checks every file listed
 here against its original, so the two host planes cannot drift apart.
 To resync after a change to the original, copy the file and apply
 `translate`.
+
+`utils/trace.py` is no longer a copy but the port's own: its stage
+profiler keeps a span log and times device stages with CUDA events,
+where the JAX package's has no card to wait for.  Its logging and
+channel tracer are still the original's.
 """
 
 VENDORED = (
@@ -27,7 +32,7 @@ VENDORED = (
     "native/walk2.c", "native/walk3.c", "native/walk4.c", "native/walk5.c",
     "native/walk6.c", "native/walk7.c", "native/walk8.c", "native/walk9.c",
     "native/recon.c",
-    "dpb.py", "utils/__init__.py", "utils/trace.py",
+    "dpb.py", "utils/__init__.py",
     "ops/rom.py", "ops/tables.py", "ops/tables_tr.npz", "ops/tables_mip.npz",
     "ops/tables_if.npz", "ops/tables_rpr.npz", "ops/tables_alf.npz",
     "ops/tables_vfgs.npz",

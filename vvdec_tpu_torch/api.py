@@ -18,6 +18,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from vvdec_tpu_torch.utils.trace import profiler
+
 
 @dataclass
 class DecoderParams:
@@ -66,19 +68,21 @@ class Decoder:
     def __init__(self, params: DecoderParams | None = None):
         from vvdec_tpu_torch.decoder import StreamDecoder
         self.params = params or DecoderParams()
-        self._core = StreamDecoder(
-            device=self.params.device,
-            strict_hash=self.params.verify_picture_hash,
-            err_policy=self.params.err_handling,
-            threads=self.params.threads,
-            parse_delay=None if self.params.parse_delay < 0
-            else self.params.parse_delay)
+        with profiler.stage("api: open"):
+            self._core = StreamDecoder(
+                device=self.params.device,
+                strict_hash=self.params.verify_picture_hash,
+                err_policy=self.params.err_handling,
+                threads=self.params.threads,
+                parse_delay=None if self.params.parse_delay < 0
+                else self.params.parse_delay)
         self._fg = None  # film-grain synthesizer (lazy, FGC-SEI driven)
         self._fg_state = "none"
 
     # -- lifecycle ---------------------------------------------------------
     def close(self) -> None:
-        self._core = None
+        with profiler.stage("api: close"):
+            self._core = None
 
     def __enter__(self):
         return self
@@ -91,20 +95,23 @@ class Decoder:
     def decode(self, au: bytes) -> list[Frame]:
         """Push one access unit (or any Annex-B chunk); returns the frames
         that became ready for output, in output order (vvdec_decode)."""
-        return [self._to_frame(p) for p in self._core.push(au)]
+        with profiler.stage("api: decode"):
+            return [self._to_frame(p) for p in self._core.push(au)]
 
     def flush(self) -> list[Frame]:
         """Drain all remaining frames (vvdec_flush)."""
-        return [self._to_frame(p) for p in self._core.flush()]
+        with profiler.stage("api: flush"):
+            return [self._to_frame(p) for p in self._core.flush()]
 
     def frame_unref(self, frame: Frame) -> None:
         """Release the frame's DPB slot (vvdec_frame_unref)."""
-        if self.params.buffer_unref is not None and frame.planes:
-            self.params.buffer_unref(frame.planes)
-        if frame.picture is not None:
-            self._core.plm.release(frame.picture)
-            frame.picture = None
-            frame.planes = []
+        with profiler.stage("api: frame_unref"):
+            if self.params.buffer_unref is not None and frame.planes:
+                self.params.buffer_unref(frame.planes)
+            if frame.picture is not None:
+                self._core.plm.release(frame.picture)
+                frame.picture = None
+                frame.planes = []
 
     # -- queries -----------------------------------------------------------
     def find_frame_sei(self, frame: Frame, payload_type: int):

@@ -94,7 +94,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("-tr", "--TraceRule", dest="trace_rule", default="",
                     help='trace rule, e.g. "D_PIC:poc==0"')
     ap.add_argument("--profile", action="store_true",
-                    help="print per-stage timing report")
+                    help="print the per-stage timing report: inclusive and "
+                    "self ms a picture, calls, by picture type")
     ap.add_argument("-v", "--verbosity", type=int, default=2)
     args = ap.parse_args(argv)
     if args.threads <= 0:
@@ -177,7 +178,11 @@ def main(argv: list[str] | None = None) -> int:
             out_f.close()
 
     if args.profile:
+        profiler.enabled = False     # resolves the device stages' times
         print(profiler.report(), file=sys.stderr)
+        from vvdec_tpu_torch.ops.cuda._build import setup_counts as k
+        print(f"kernel set-up: {k['builds']} builds ({k['build_s']:.3f} s),"
+              f" {k['loads']} loads ({k['load_s']:.3f} s)", file=sys.stderr)
     fps = total_frames / dt if dt > 0 else 0.0
     if args.verbosity >= 2:
         print(f"vvdec_tpu_torch: {total_frames} frames decoded in "

@@ -38,6 +38,7 @@ command-line app (app.py, and `main` here) and the GOP worker pool
 
 from __future__ import annotations
 
+import itertools
 import sys
 import time
 from dataclasses import dataclass, field
@@ -56,6 +57,11 @@ from vvdec_tpu_torch.hls.reader import (
     parse_slice_header,
     parse_sps,
 )
+from vvdec_tpu_torch.utils.trace import profiler
+
+# each StreamDecoder's serial: with the POC it names a picture in the
+# stage profiler's spans
+_serials = itertools.count(1)
 
 
 def u16_view(p: np.ndarray) -> np.ndarray:
@@ -420,20 +426,23 @@ class _MultiSliceWalk:
 class _DeferredFrame:
     """In-flight device-filtered frame: resolves to pixel planes on first
     use (as a host picture's reference or for output), running the
-    deferred DPH check."""
+    deferred DPH check.  `pic` is its picture id in the stage profiler's
+    spans, which its readback carries."""
 
-    def __init__(self, dec, pending, sei, poc, bit_depth) -> None:
+    def __init__(self, dec, pending, sei, poc, bit_depth, pic) -> None:
         self._dec = dec
         self._pending = pending
         self._sei = sei
         self._poc = poc
         self._bd = bit_depth
+        self._pic = pic
         self._planes32 = None
         self._u16 = None
 
     def resolve_int32(self) -> list:
         if self._planes32 is None:
-            self._planes32 = self._pending.resolve()
+            with profiler.picture(self._pic):
+                self._planes32 = self._pending.resolve()
             self._pending = None
             self._u16 = [u16_view(p) for p in self._planes32]
             self._dec._check_dph(self._sei, self._u16, self._bd,
@@ -443,6 +452,15 @@ class _DeferredFrame:
     def resolve_u16(self) -> list:
         self.resolve_int32()
         return self._u16
+
+
+def picture_type(f: ParsedFrame) -> str:
+    """"IDR", "I", "B" or "P": the picture's type in the per-picture log
+    line and in the stage profiler's picture ids."""
+    if f.is_idr:
+        return "IDR"
+    sh = f.cs.sh
+    return "I" if sh.is_intra else ("B" if sh.is_b else "P")
 
 
 def t_is_ref(nal_type) -> bool:
@@ -497,6 +515,7 @@ class StreamDecoder:
         min(1.5 * threads, 48), the reference's default."""
         from vvdec_tpu_torch.device import resolve_device
         from vvdec_tpu_torch.dpb import PicListManager
+        self.serial = next(_serials)
         self.parser = FrameParser()
         self.plm = PicListManager()
         self.device = resolve_device(device)
@@ -555,12 +574,9 @@ class StreamDecoder:
         if self._parse_exec is not None:
             return self._push_threaded(data)
         out = []
-        from vvdec_tpu_torch.utils.trace import profiler
         for nal in read_nal_units(data):
             try:
-                with profiler.stage("parse"):
-                    done = self.parser.feed_nal(
-                        nal, last_frame=self._pending)
+                done = self._feed(nal, self._pending)
             except Exception as e:
                 done = self._parse_failed(e)
             for f in done:
@@ -569,6 +585,22 @@ class StreamDecoder:
                 self._pending = f
             out.extend(self._bump())
         return out
+
+    def _feed(self, nal, last_frame) -> list:
+        """parser.feed_nal in the stage "parse", whose span carries the
+        picture of a slice once its header is read."""
+        with profiler.stage("parse"):
+            done = self.parser.feed_nal(nal, last_frame=last_frame)
+            if profiler.enabled and nal.is_vcl:
+                open_ = self.parser._pending
+                f = done[-1] if done else open_[0] if open_ else None
+                if f is not None:
+                    profiler.tag(self._picture_id(f))
+        return done
+
+    def _picture_id(self, f: ParsedFrame) -> tuple:
+        """(decoder serial, POC, type): the picture in the spans."""
+        return (self.serial, f.poc, picture_type(f))
 
     def _parse_failed(self, exc: Exception) -> list:
         """Called while `exc`, raised by the parser, is being handled:
@@ -589,7 +621,7 @@ class StreamDecoder:
     def _parse_one(self, nal) -> list:
         """Runs on the parse thread; serial, owns all parser state."""
         try:
-            done = self.parser.feed_nal(nal, last_frame=self._last_parsed)
+            done = self._feed(nal, self._last_parsed)
         except Exception as e:
             done = self._parse_failed(e)
         if done:
@@ -810,11 +842,13 @@ class StreamDecoder:
                 self._refs_host[poc] = self._refs_host[best]
                 self._ref_cols[poc] = self._ref_cols[best]
                 return best
+            from vvdec_tpu_torch.ops.device_pipeline import upload
             host, cols = self._unused_refs[best]
             if isinstance(host, _DeferredFrame):
                 host = host.resolve_int32()
             self._refs_dev[poc] = tuple(
-                torch.tensor(p, device=self.device) for p in host)
+                upload(p, self.device, "wait: upload concealed reference")
+                for p in host)
             self._refs_host[poc] = host
             self._ref_cols[poc] = cols
             return best
@@ -863,7 +897,8 @@ class StreamDecoder:
         try:
             if f.broken:
                 raise RuntimeError("picture broken during parse")
-            self._reconstruct_inner(f)
+            with profiler.picture(self._picture_id(f)):
+                self._reconstruct_inner(f)
         except Exception as e:
             if self.err_policy != "conceal" or is_device_fault(e):
                 raise
@@ -906,7 +941,7 @@ class StreamDecoder:
         self._num_reorder = cs.sps.num_reorder_pics[-1]
         pic_error = self._resolve_ref_sets(f, cs)
         self._mark_unused(f, cs)
-        from vvdec_tpu_torch.utils.trace import msg, profiler, trace, INFO
+        from vvdec_tpu_torch.utils.trace import msg, trace, INFO
         t_pic = time.monotonic()
         # full device pipeline: ITX + MC + intra chain + filters + packing
         # in one device-resident flow (ops/frame_device.py); it times its
@@ -914,7 +949,7 @@ class StreamDecoder:
         # it rejects is reconstructed on the host, then filtered on the
         # device, or on the host when the device chain rejects it too
         from vvdec_tpu_torch.ops.device_pipeline import (
-            device_filter_reject_reason, filter_frame_device)
+            device_filter_reject_reason, filter_frame_device, upload)
         from vvdec_tpu_torch.ops.frame_device import (
             plan_frame_device, reconstruct_frame_device)
         desc, dev_reason = plan_frame_device(cs)
@@ -941,7 +976,8 @@ class StreamDecoder:
                 # derived before the DMVR MV fixups below, as on the host
                 with profiler.stage("filter(submit)"):
                     pending = filter_frame_device(cs, [
-                        torch.tensor(p, device=self.device) for p in planes])
+                        upload(p, self.device, "wait: upload host picture")
+                        for p in planes])
             else:
                 from vvdec_tpu_torch.frame.alf_np import alf_frame_vec
                 from vvdec_tpu_torch.frame.deblock_np import deblock_frame
@@ -958,12 +994,13 @@ class StreamDecoder:
             # their MC references from it without a host round trip
             self._refs_dev[f.poc] = tuple(pending.planes_dev)
             deferred = _DeferredFrame(self, pending, f.sei, f.poc,
-                                      cs.sps.bit_depth)
+                                      cs.sps.bit_depth, self._picture_id(f))
             self._refs_host[f.poc] = deferred
         else:
             # host-filtered planes enter the device DPB, uploaded once
             self._refs_dev[f.poc] = tuple(
-                torch.tensor(p, device=self.device) for p in planes)
+                upload(p, self.device, "wait: upload host picture")
+                for p in planes)
             deferred = None
             self._refs_host[f.poc] = planes
         # DMVR-refined MVs enter the motion field only after the
@@ -986,8 +1023,7 @@ class StreamDecoder:
                             cs=cs)
         # per-POC decode log + trace (reference per-picture log line,
         # DecLib.cpp:395-438; D_PIC trace channel)
-        st = "IDR" if f.is_idr else ("I" if cs.sh.is_intra else
-                                     ("B" if cs.sh.is_b else "P"))
+        st = picture_type(f)
         msg(INFO, f"POC {f.poc:4d} [{st}] QP {cs.sh.qp_y} "
                   f"[DT {time.monotonic() - t_pic:.3f}]")
         trace("D_PIC", f"poc={f.poc} type={st}\n", poc=f.poc)

@@ -8,6 +8,8 @@ KernelError with the compiler's output, and so does a library ctypes
 cannot load; a build that succeeds keeps the compiler's output
 (`-Xptxas -v`: each kernel's registers, spills and shared memory)
 beside the library (`build_log`).  Nothing runs at import time.
+`setup_counts` counts, for the process, the builds (nvcc runs) and the
+loads (ctypes) and the seconds each took.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -27,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict = {}
+setup_counts = {"builds": 0, "build_s": 0.0, "loads": 0, "load_s": 0.0}
 
 
 class KernelError(RuntimeError):
@@ -60,6 +64,7 @@ def build_kernel(name: str) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+    t0 = time.perf_counter()
     try:
         try:
             r = subprocess.run(cmd, capture_output=True, text=True,
@@ -76,6 +81,8 @@ def build_kernel(name: str) -> str:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+        setup_counts["builds"] += 1
+        setup_counts["build_s"] += time.perf_counter() - t0
     return out
 
 
@@ -94,9 +101,13 @@ def load_kernel(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         path = build_kernel(name)
+        t0 = time.perf_counter()
         try:
             lib = ctypes.CDLL(path)
         except OSError as e:
             raise KernelError(f"cannot load {path}: {e}") from e
+        finally:
+            setup_counts["loads"] += 1
+            setup_counts["load_s"] += time.perf_counter() - t0
         _loaded[name] = lib
     return lib

@@ -44,6 +44,7 @@ from vvdec_tpu_torch.ops.tables import (
     MIP_8x8,
     MIP_16x16,
 )
+from vvdec_tpu_torch.utils.trace import profiler
 
 # the constant pool (csrc/intra_wavefront.cu k* offsets): name, shape
 CONST_TABLES = (("cubic", (32, 4)), ("gauss", (32, 4)),
@@ -300,7 +301,8 @@ def launch_plan(buf, resi, plan, n_phases: int, consts, lm, *, bd: int,
         raise ValueError(f"launch_plan: a cluster of {cluster} blocks; the "
                          f"kernel takes {CLUSTER_SIZES}")
     dev = buf.device
-    pt = torch.as_tensor(plan, device=dev)
+    with profiler.stage("wait: upload intra plan"):
+        pt = torch.as_tensor(plan, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

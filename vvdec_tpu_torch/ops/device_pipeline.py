@@ -20,7 +20,6 @@ waits on.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import numpy as np
@@ -37,15 +36,27 @@ _ACT_TH = np.array((0, 1, 2, 2, 2, 2, 2, 3, 3, 3, 3, 3, 3, 3, 3, 4),
 _TRANSPOSE = np.array((0, 1, 0, 2, 2, 3, 1, 3), dtype=np.int32)
 
 
-@contextlib.contextmanager
 def timed_stage(name: str, device):
-    """profiler.stage(name) that, while the profiler is on, waits for
-    the device at the end of the stage, so the stage's time includes
-    its device work.  Costs nothing when the profiler is off."""
-    with profiler.stage(name):
-        yield
-        if profiler.enabled and torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
+    """profiler.stage(name) whose span, while the span log is on and
+    `device` is CUDA, also holds the device time of the work queued
+    inside it (a CUDA event at entry and one at exit, resolved when the
+    log turns off), so the stage's time in `profiler.totals` includes
+    its device work.  Nothing waits for the device."""
+    ctx = profiler.stage(name)
+    if profiler.enabled:
+        if not isinstance(device, torch.device):
+            device = torch.device(device)
+        if device.type == "cuda":
+            return profiler.device_span(ctx, device)
+    return ctx
+
+
+def upload(a, device, site: str, **kw):
+    """torch.as_tensor(a, device=device, **kw) in the span `site`, a
+    "wait: upload ..." name: from pageable host memory the copy waits
+    for the card's queue to drain."""
+    with profiler.stage(site):
+        return torch.as_tensor(a, device=device, **kw)
 
 
 def device_filter_reject_reason(cs) -> str | None:
@@ -749,7 +760,8 @@ class PendingFrame:
         if self._planes is None:
             with profiler.stage("readback"):
                 if self._event is not None:
-                    self._event.synchronize()
+                    with profiler.stage("wait: readback"):
+                        self._event.synchronize()
                 raw = self._host.numpy()
             if self.bd <= 8:
                 flat = raw.astype(np.int32)
@@ -787,7 +799,8 @@ def filter_frame_device(cs, planes) -> PendingFrame:
     dev = planes[0].device
     with timed_stage("filter: params", dev):
         fn = _chain_fn(key)
-        flat = torch.as_tensor(_flat_pack(key, arrays), device=dev)
+        flat = upload(_flat_pack(key, arrays), dev,
+                      "wait: upload filter params")
     # the chain times its own stages: filter: deblock, sao, alf, pack
     out_planes, packed = fn(tuple(planes[:num_comp]), flat)
     return PendingFrame(out_planes, packed, shapes, cs.sps.bit_depth,
@@ -856,9 +869,9 @@ def filter_frames_device_batch(items) -> list[PendingFrame]:
     dev = items[0][1][0].device
     with timed_stage("filter: params", dev):
         fn = _chain_fn_batched(key)
-        flat = torch.as_tensor(
-            np.stack([_flat_pack(key, arrays) for _, arrays in per]),
-            device=dev)
+        flat = upload(
+            np.stack([_flat_pack(key, arrays) for _, arrays in per]), dev,
+            "wait: upload filter params")
         planes = tuple(torch.stack([p[c] for _, p in items])
                        for c in range(num_comp))
     out_planes, packed = fn(planes, flat)

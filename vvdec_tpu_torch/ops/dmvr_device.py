@@ -53,6 +53,7 @@ from vvdec_tpu_torch.ops.mc_device import (
     mc_coeff_rows,
     ref_windows,
 )
+from vvdec_tpu_torch.utils.trace import profiler
 
 DMVR_ITER = 2
 DMVR_SUBCU = 16
@@ -380,7 +381,8 @@ class LazyDmvrFixups:
     def __iter__(self):
         for positions, host, event in self._parts:
             if event is not None:
-                event.synchronize()
+                with profiler.stage("wait: dmvr fixups"):
+                    event.synchronize()
             a = host.numpy().tolist()
             for x2, y2, k in positions.tolist():
                 yield (x2, y2, (a[k][0], a[k][1]), (a[k][2], a[k][3]))

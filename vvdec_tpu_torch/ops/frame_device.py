@@ -51,6 +51,7 @@ from vvdec_tpu_torch.ops.device_pipeline import (
     device_filter_reject_reason,
     filter_frame_device,
     timed_stage,
+    upload,
 )
 from vvdec_tpu_torch.ops.intra_device import (
     PB,
@@ -158,8 +159,8 @@ def itx_residual_device(cs, device=None) -> list:
             m = CHROMA422_MAP[m]
         return m
 
-    def up(a):
-        return torch.as_tensor(a, device=dev)
+    def up(a, site="wait: upload itx groups"):
+        return upload(a, dev, site)
 
     bd = cs.sps.bit_depth
     resi = []
@@ -174,7 +175,8 @@ def itx_residual_device(cs, device=None) -> list:
         if comp < cs.num_comp:
             # one int16 upload per plane, as the reference does; levels
             # outside int16 wrap exactly as they do there
-            coefd.append(up(cs.coef[comp].astype(np.int16)))
+            coefd.append(up(cs.coef[comp].astype(np.int16),
+                            "wait: upload coefficients"))
         else:
             coefd.append(None)
 
@@ -241,7 +243,7 @@ def itx_residual_device(cs, device=None) -> list:
     table, n_tasks = frame_table(plain.items(), bd)
     meta = np.array([[it[k] for items in groups.values() for it in items]
                      for k in (1, 0, 2)], dtype=np.int32).reshape(-1)
-    buf = up(np.concatenate([meta, table]))
+    buf = up(np.concatenate([meta, table]), "wait: upload itx table")
     meta = buf[:meta.size].view(3, -1)
     resi = itx_frame_cuda(coefd, resi, buf[meta.numel():], matrix_pool(dev),
                           n_tasks=n_tasks, bit_depth=bd)
@@ -397,8 +399,8 @@ class _Upload:
         return handle
 
     def send(self, device) -> None:
-        self._buf = torch.as_tensor(np.concatenate(self._arrays),
-                                    device=device)
+        self._buf = upload(np.concatenate(self._arrays), device,
+                           "wait: upload mc params")
 
     def get(self, handle):
         off, shape = handle
@@ -966,7 +968,8 @@ def reconstruct_frame_device(cs, desc, get_ref=None, device=None):
             from vvdec_tpu_torch.frame.lmcs_np import Reshaper
             rs = Reshaper(cs.lmcs_info, bd, bool(cs.ph.chroma_residual_scale))
             # one upload of the LMCS table per frame
-            lmcs = torch.as_tensor(build_lmcs_params(rs, cs), device=dev)
+            lmcs = upload(build_lmcs_params(rs, cs), dev,
+                          "wait: upload lmcs table")
         recon = run_intra_scan(recon, resi, desc, scan_key(cs), lmcs)
     planes = []
     for comp in range(cs.num_comp):

@@ -65,12 +65,6 @@ D = 33     # descriptor row width
 H_OFF = 64           # refext negative-side extent (max side length)
 RL2 = H_OFF + 128 + B + 4   # refext length: side ext + 2*64 main + taps
 WAVEFRONT_K = 8      # units per wavefront step (the reference's K)
-# profiler stage of a sequential scan step, by mode class (host time:
-# the steps are launch-bound, and a per-step device sync would change
-# that)
-STEP_STAGES = ("intra step: planar", "intra step: DC",
-               "intra step: angular", "intra step: MIP", "intra step: CCLM",
-               "intra step: CIIP")
 
 # descriptor row layout (int32):
 #  0 comp; 1 x; 2 y; 3 w; 4 h; 5 log2w; 6 log2h;
@@ -908,9 +902,7 @@ def _intra_scan_fn(bd: int, cfmt: int = 1, collocated: bool = True,
             if hd[28] != 1:
                 continue
             c = min(max(int(hd[0]), 0), 2)
-            mc = min(max(int(hd[7]), 0), 5)
-            with profiler.stage(STEP_STAGES[mc]):
-                upd(P[c], P[0], R[c], dt[i:i + 1], hd, lm)
+            upd(P[c], P[0], R[c], dt[i:i + 1], hd, lm)
         return tuple(p[:s[0], :s[1]] for p, s in zip(P, shapes))
 
     return run
@@ -1239,6 +1231,9 @@ def build_intra_descriptors(cs):
                 | (4 if above is not None else 0))
         x_pos, y_pos, nbf = vpdu_cache[(vx, vy)]
         return (1 | nbf, x_pos, y_pos, 0)
+    # the plan layer's work count: the TUs this walk visits (all of the
+    # picture's; a picture rejected below stops part way)
+    profiler.count("plan: TUs", len(cs.tus))
     for tu in cs.tus:
         cu = cs.cus[tu.cu_idx]
         is_intra = cu.pred_mode == MODE_INTRA
