@@ -182,7 +182,10 @@ def main(argv: list[str] | None = None) -> int:
         print(profiler.report(), file=sys.stderr)
         from vvdec_tpu_torch.ops.cuda._build import setup_counts as k
         print(f"kernel set-up: {k['builds']} builds ({k['build_s']:.3f} s),"
-              f" {k['loads']} loads ({k['load_s']:.3f} s)", file=sys.stderr)
+              f" {k['loads']} loads ({k['load_s']:.3f} s); host C:"
+              f" {k['host_builds']} builds ({k['host_build_s']:.3f} s),"
+              f" {k['host_loads']} loads ({k['host_load_s']:.3f} s)",
+              file=sys.stderr)
     fps = total_frames / dt if dt > 0 else 0.0
     if args.verbosity >= 2:
         print(f"vvdec_tpu_torch: {total_frames} frames decoded in "

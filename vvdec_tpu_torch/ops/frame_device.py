@@ -56,9 +56,9 @@ from vvdec_tpu_torch.ops.device_pipeline import (
 from vvdec_tpu_torch.ops.intra_device import (
     PB,
     _win_start,
-    build_intra_descriptors,
     build_lmcs_params,
     lmcs_inv_map,
+    plan_intra_descriptors,
     run_intra_scan,
     scan_key,
 )
@@ -910,10 +910,11 @@ def plan_frame_device(cs):
             return None, f"filter_{reason}"
         if getattr(cs, "per_slice_rpl", False):
             return None, "per_slice_rpl"
-        desc, reason = build_intra_descriptors(cs)
+        desc, reason, inter = plan_intra_descriptors(cs)
         if reason is not None:
             return None, reason
-        inter = any(cu.pred_mode != MODE_INTRA for cu in cs.cus)
+        if inter is None:
+            inter = any(cu.pred_mode != MODE_INTRA for cu in cs.cus)
         if not inter:
             return desc, None
         if _lmcs_on(cs):

@@ -14,11 +14,13 @@ scan="seq")`), the parity baseline the wavefront reorders.
 The reference-sample geometry (availability, substitution, replication;
 xFillReferenceSamples, IntraPrediction.cpp:1161) is value-independent,
 so the host compiles each unit into a 33-int descriptor row
-(`build_intra_descriptors`, copied from the reference as it stands) and
-groups rows into steps of independent units (`compute_unit_levels`,
-`build_wavefront_batches`, and `wavefront_step_levels`, the level of
-each step).  On the card one launch of the hand-written kernel
-csrc/intra_wavefront.cu runs every step of a picture
+(`build_intra_descriptors`: in C from the syntax walk's records,
+csrc/plan_host.c, or in `build_intra_descriptors_py`, copied from the
+reference as it stands, its plain twin) and groups rows into steps of
+independent units (`compute_unit_levels`, `build_wavefront_batches`,
+and `wavefront_step_levels`, the level of each step).  On the card one
+launch of the hand-written kernel csrc/intra_wavefront.cu runs every
+step of a picture
 (`ops/cuda/intra.intra_wavefront_cuda`), as the JAX package's one
 `lax.scan` + `lax.switch` program a picture does, but a dependency level
 at a time over a thread-block cluster; on the CPU its plain version
@@ -1066,7 +1068,8 @@ def run_intra_scan(planes_pad, resi_pad, desc: np.ndarray, key, lmcs=None,
 
 
 # ======================================================================
-# host descriptor builder (copied from the reference as it stands)
+# host descriptor builder (the C builder's dispatch; its Python twin,
+# copied from the reference as it stands)
 # ======================================================================
 def _fill_params(cs, order_map, wpp, ctu_log2, tu, cu, comp):
     """Reference-fill geometry for one unit -> 13 ints, avail0 flag; or
@@ -1137,11 +1140,65 @@ def _fill_params(cs, order_map, wpp, ctu_log2, tu, cu, comp):
             x, x, 0, 0, y - 1, y - 1), 0
 
 
+def _picture_gates(cs):
+    """(reason, chroma_scale_on): the first picture-level rejection of
+    the descriptor builders (bit depth, mixed LMCS slices, IBC, ACT), or
+    None, and whether LMCS scales the picture's chroma residuals."""
+    if cs.sps.bit_depth > 10:
+        return "bit_depth>10", False
+    lmcs_on = bool(cs.ph.lmcs_enabled
+                   and getattr(cs, "lmcs_info", None) is not None)
+    if lmcs_on and len({bool(s.lmcs_enabled) for s in cs.shs}) > 1:
+        # mixed per-slice reshaping would need a masked inverse map
+        return "lmcs_mixed_slices", False
+    if cs.sps.ibc_enabled:
+        return "ibc", False
+    if cs.sps.act_enabled:
+        return "act", False
+    if lmcs_on and not cs.shs[0].lmcs_enabled:
+        lmcs_on = False  # model present but disabled for every slice
+    return None, bool(lmcs_on and cs.ph.chroma_residual_scale
+                      and cs.num_comp > 1)
+
+
+def plan_intra_descriptors(cs):
+    """(desc, reason, has_inter): build_intra_descriptors' pair, and
+    whether any CU of the picture is not intra (None where the builder
+    did not look).  A picture that carries the native syntax walk's
+    records is planned in C from them (ops/plan_host.py); one parsed by
+    the Python walk, or where the C builder is unavailable or meets an
+    input it does not model, by build_intra_descriptors_py.  Both give
+    the same table, bit for bit.  Counts "plan: TUs" and the picture
+    under "plan: C pictures" or "plan: Python pictures"."""
+    from vvdec_tpu_torch.ops.plan_host import build_rows
+    reason, chroma_scale_on = _picture_gates(cs)
+    if reason is not None:
+        return None, reason, None
+    out = build_rows(cs, chroma_scale_on)
+    if out is not None:
+        profiler.count("plan: TUs", len(cs.tus))
+        profiler.count("plan: C pictures")
+        return out
+    profiler.count("plan: Python pictures")
+    desc, reason = build_intra_descriptors_py(cs)
+    return desc, reason, None
+
+
 def build_intra_descriptors(cs):
     """(desc [n, D] int32, None) for a device-eligible picture, or
-    (None, reason) naming the first tool outside the device intra set.
-    Walks cs.tus in parse order, maintaining the TU order map the
-    availability rule needs (recon_np parity)."""
+    (None, reason) naming the first tool outside the device intra set;
+    from the C builder where the picture carries the syntax walk's
+    records, else from build_intra_descriptors_py
+    (plan_intra_descriptors)."""
+    desc, reason, _ = plan_intra_descriptors(cs)
+    return desc, reason
+
+
+def build_intra_descriptors_py(cs):
+    """build_intra_descriptors in Python, the reference's builder as it
+    stands and the C builder's plain twin: walks cs.tus in parse order,
+    maintaining the TU order map the availability rule needs (recon_np
+    parity)."""
     from vvdec_tpu_torch.frame.recon_np import (
         CHROMA422_MAP,
         DIA_IDX,
@@ -1163,21 +1220,9 @@ def build_intra_descriptors(cs):
         PLANAR_IDX,
     )
 
-    if cs.sps.bit_depth > 10:
-        return None, "bit_depth>10"
-    lmcs_on = bool(cs.ph.lmcs_enabled
-                   and getattr(cs, "lmcs_info", None) is not None)
-    if lmcs_on and len({bool(s.lmcs_enabled) for s in cs.shs}) > 1:
-        # mixed per-slice reshaping would need a masked inverse map
-        return None, "lmcs_mixed_slices"
-    if lmcs_on and not cs.shs[0].lmcs_enabled:
-        lmcs_on = False  # model present but disabled for every slice
-    chroma_scale_on = lmcs_on and cs.ph.chroma_residual_scale \
-        and cs.num_comp > 1
-    if cs.sps.ibc_enabled:
-        return None, "ibc"
-    if cs.sps.act_enabled:
-        return None, "act"
+    reason, chroma_scale_on = _picture_gates(cs)
+    if reason is not None:
+        return None, reason
     wpp = cs.sps.entropy_coding_sync_enabled
     ctu_log2 = cs.sps.ctu_log2
     order_map = np.full((cs.h >> 2, cs.w >> 2), -1, dtype=np.int32)
