@@ -8,8 +8,8 @@ result line:
 
 1. the card: torch / CUDA versions and the card's name and power limit;
 2. the build: nvcc compiles every kernel of the decode path from
-   vvdec_tpu_torch/csrc/ into build/kernels/ (itx.cu, intra_wavefront.cu
-   and deblock.cu, one nvcc each, started together), and prints each
+   vvdec_tpu_torch/csrc/ into build/kernels/ (itx.cu, intra_wavefront.cu,
+   deblock.cu and sao_alf.cu, one nvcc each, started together), and prints each
    kernel's registers and spills as -Xptxas -v reports them;
 3. each kernel against its plain PyTorch version on the card, bit-equal,
    with its time, the plain version's time and its bound per shape,
@@ -18,7 +18,11 @@ result line:
    overlapping write windows at 832x480 and 1920x1080 4:2:0 (also with
    a frame axis of 3 pictures), 4:0:0, 4:2:2 and 4:4:4, 8 and 10 bits,
    one and two slices, each with its device time, the plain version's
-   and the bound;
+   and the bound; the SAO/ALF kernels (sao_alf_cuda) against
+   sao_alf_ref on fuzzed planes and parameters at 832x480 (also with a
+   frame axis of 3 pictures) and 1920x1080 4:2:0, 4:0:0, 4:2:2 and
+   4:4:4, 8 and 10 bits, CTU 32, 64 and 128, each with each kernel's
+   device time, the plain version's and the bound;
 4. the main path: the headline all-intra 832x480 Main10 stream (8
    frames, made by the port's own test encoder) decoded through
    vvdec_tpu_torch.decoder.decode_annexb on CUDA; the ITX kernel must be
@@ -106,7 +110,7 @@ result line:
    card memory.  Every device picture of (a)-(d) makes one ITX launch,
    held to the plain version; (a) deblocks every band through
    deblock_dense_cuda, (b) its 4 stacked pictures in one call of 2
-   launches;
+   launches, and one call of 2 SAO/ALF launches;
 12. the whole-frame stages of vvdec_tpu_torch/ops/pipeline.py: the first
    picture of the headline, tool-rich and SAO/ALF streams, and both
    pictures of the vb and tiles-ALF streams (virtual boundaries; a 2x2
@@ -137,7 +141,9 @@ result line:
    every recorded frame, the intra wavefront kernel on the first picture
    and on every 1080p IDR picture (the first SAO/ALF 1080p one also at
    every cluster size), the deblock kernel on every picture (and timed
-   per 1080p frame); on the max-density and 1080p frames
+   per 1080p frame), the SAO/ALF kernels (two launches a picture) on
+   every picture of the SAO/ALF streams (and timed per frame); on the
+   max-density and 1080p frames
    the ITX kernel prints per
    frame the kernel's device ms (torch.profiler, as for the headline,
    over a trace of 300 launches of the frame: short traces lose most of
@@ -184,7 +190,12 @@ TRACE_LAUNCHES launches), the plain version's (its kernels in one traced
 run), the wrapper calls' stream time (CUDA events) and the bytes of
 reading each input once and writing each plane once over
 HBM_BYTES_PER_S (bound_two_pass_ms: each plane read and written once
-per direction).
+per direction).  In the sao_alf entry, launches counts the sao_alf_cuda
+launches of the timed decodes of phases 4-8 and 13 and of phase 11's
+batched chain, max_abs_err covers phase 3's cases and every recorded
+picture, and ms (sao_ms + alf_ms), plain_ms, call_ms and bound_ms are
+per picture of the 832x480 "SAO/ALF 8" stream, measured as the deblock's
+(bound_two_launch_ms also writes and reads the post-SAO planes).
 Needs a CUDA device; imports neither JAX nor the JAX package.
 """
 
@@ -210,7 +221,7 @@ PEAK_F32_OPS_PER_S = 67e12
 TABLE_ROW_BYTES = 40        # one TU row of the work table (10 int32)
 BIT_DEPTH = 10
 # the sources of csrc/ the decode path runs, built in phase 2
-KERNELS = ("itx", "intra_wavefront", "deblock")
+KERNELS = ("itx", "intra_wavefront", "deblock", "sao_alf")
 
 
 class SmokeFailure(Exception):
@@ -599,7 +610,8 @@ def recording_decode(stream: bytes, label: str, census=None,
 def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
                  label: str, census=None, device_frames=None,
                  size=(832, 480), recorded=None, prefix=None,
-                 profile=False, wavefront=None, deblock=None) -> dict:
+                 profile=False, wavefront=None, deblock=None,
+                 sao_alf=None) -> dict:
     """The path as a user drives it: a StreamDecoder on CUDA fed the
     whole stream, then flushed (what decode_annexb does), with the
     kernels' launch counts set to 0 just before and read just after.
@@ -610,7 +622,9 @@ def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
     frame), the intra wavefront kernel once per picture whose scan
     has a step, at least once, and the deblock kernel twice per picture,
     every picture being filtered on the device (its calls go through
-    `deblock`, a DeblockLog, default one that keeps no inputs).  The wavefront calls go through
+    `deblock`, a DeblockLog, default one that keeps no inputs), and the
+    SAO/ALF kernels at most twice per picture whose SAO or ALF is on
+    (its calls go through `sao_alf`, a SaoAlfLog, likewise).  The wavefront calls go through
     `wavefront` (a WavefrontLog, default one that keeps no inputs), which
     counts their steps by mode class.  With `recorded` (a list) the
     decode also records each
@@ -629,8 +643,10 @@ def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
     census = census or {}
     device_frames = n_frames if device_frames is None else device_frames
     from vvdec_tpu_torch.ops.cuda.deblock import deblock_dense_cuda
+    from vvdec_tpu_torch.ops.cuda.sao_alf import sao_alf_cuda
     log = WavefrontLog() if wavefront is None else wavefront
     dlog = DeblockLog() if deblock is None else deblock
+    slog = SaoAlfLog() if sao_alf is None else sao_alf
     profiler.reset()
     profiler.enabled = profile
     try:
@@ -639,10 +655,12 @@ def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
                 stack.enter_context(itx_recording(recorded, host=True))
             stack.enter_context(wavefront_recording(log))
             stack.enter_context(deblock_recording(dlog))
+            stack.enter_context(sao_alf_recording(slog))
             itx_frame_cuda.launches = 0
             itx_batch_cuda.launches = 0
             intra_wavefront_cuda.launches = 0
             deblock_dense_cuda.launches = 0
+            sao_alf_cuda.launches = 0
             t0 = time.perf_counter()
             dec = StreamDecoder()
             frames = [p.planes for p in dec.push(stream) + dec.flush()]
@@ -652,6 +670,7 @@ def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
             batch_launches = itx_batch_cuda.launches
             intra_launches = intra_wavefront_cuda.launches
             deblock_launches = deblock_dense_cuda.launches
+            sao_alf_launches = sao_alf_cuda.launches
     finally:
         profiler.enabled = False
     md5 = yuv_md5(frames)
@@ -661,7 +680,9 @@ def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
           f"frames/s; itx launches {launches} (itx_batch_cuda "
           f"{batch_launches}); intra_wavefront launches {intra_launches} "
           f"for {log.pictures} pictures with intra units; deblock launches "
-          f"{deblock_launches} for {dlog.pictures} pictures; md5 {md5}; "
+          f"{deblock_launches} for {dlog.pictures} pictures; SAO/ALF "
+          f"launches {sao_alf_launches} for {slog.pictures} pictures; md5 "
+          f"{md5}; "
           f"fallback census {got}")
     fail_unless(len(frames) == n_frames, f"{label}: {len(frames)} frames "
                 f"decoded, expected {n_frames}")
@@ -683,13 +704,18 @@ def timed_decode(stream: bytes, n_frames: int, md5_pin: str,
     fail_unless(deblock_launches == 2 * dlog.pictures == 2 * n_frames,
                 f"{label}: {deblock_launches} deblock kernel launches for "
                 f"{dlog.pictures} deblocked pictures of {n_frames}")
+    fail_unless(sao_alf_launches <= 2 * slog.pictures <= 2 * n_frames,
+                f"{label}: {sao_alf_launches} SAO/ALF kernel launches for "
+                f"{slog.pictures} pictures with SAO or ALF of {n_frames}")
     fail_unless(md5 == md5_pin, f"{label}: decoded YUV md5 {md5} != pinned "
                 f"{md5_pin}")
     fail_unless(got == census, f"{label}: fallback census {got} != "
                 f"{census}")
     out = dict(fps=len(frames) / dt, decode_s=dt, launches=launches,
                intra_launches=intra_launches,
-               deblock_launches=deblock_launches, md5=md5, census=got,
+               deblock_launches=deblock_launches,
+               sao_alf_launches=sao_alf_launches,
+               sao_alf_pictures=slog.pictures, md5=md5, census=got,
                intra_steps_by_class=log.steps_by_class(n_frames))
     if profile:
         out["stages_ms_per_frame"] = stage_split(n_frames, dt, label, log)
@@ -918,6 +944,185 @@ def phase_deblock_vs_plain(derrs: list) -> None:
         print(f"[kernel] deblock {label}: {changed} samples changed; kernel "
               f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.6f} ms "
               f"(bytes); bit-equal")
+
+
+class SaoAlfLog:
+    """What the sao_alf_cuda calls of the device filter chain did while
+    `sao_alf_recording(log)` is open: the pictures they filtered (a call
+    filters one picture, or a stack of them) and the inputs of the first
+    `keep` calls (the post-deblock planes, the packed parameter vector,
+    the chain's key; in host memory with `host`)."""
+
+    def __init__(self, keep: int = 0, host: bool = False):
+        self.keep, self.host = keep, host
+        self.pictures = 0
+        self.recorded: list = []
+
+
+@contextlib.contextmanager
+def sao_alf_recording(log: SaoAlfLog):
+    """While open, every sao_alf_cuda call of the filter chain goes
+    through `log` (SaoAlfLog), then runs the wrapper."""
+    import vvdec_tpu_torch.ops.device_pipeline as device_pipeline
+    from vvdec_tpu_torch.ops.cuda.sao_alf import sao_alf_cuda
+
+    def keep(t):
+        return t.cpu() if log.host else t.clone()
+
+    def recorder(planes, flat, key):
+        log.pictures += planes[0].shape[0] if planes[0].dim() == 3 else 1
+        if len(log.recorded) < log.keep:
+            log.recorded.append(dict(planes=[keep(p) for p in planes],
+                                     flat=keep(flat), key=key))
+        return sao_alf_cuda(planes, flat, key)
+
+    device_pipeline.sao_alf_cuda = recorder
+    try:
+        yield log
+    finally:
+        device_pipeline.sao_alf_cuda = sao_alf_cuda
+
+
+def sao_alf_on_card(rec: dict) -> dict:
+    """A recorded SAO/ALF call (sao_alf_recording) with its tensors on
+    the card."""
+    return dict(rec, planes=[p.cuda() for p in rec["planes"]],
+                flat=rec["flat"].cuda())
+
+
+def run_sao_alf(fn, rec: dict):
+    """One recorded call (tensors on the card) through fn, the wrapper or
+    its plain version."""
+    return fn(rec["planes"], rec["flat"], rec["key"])
+
+
+def sao_alf_launches(key) -> tuple[int, int]:
+    """The SAO and the ALF launches of one wrapper call under `key`."""
+    return int(key[12]), int(any(key[13:16]))
+
+
+def check_sao_alf(recorded, serrs: list, label: str) -> None:
+    """The SAO/ALF kernels against their plain version on every recorded
+    picture (its post-deblock planes as the path gave them), bit-equal;
+    each picture's max |err| goes into `serrs`."""
+    import torch
+
+    from vvdec_tpu_torch.ops.cuda.sao_alf import sao_alf_cuda, sao_alf_ref
+    for i, rec in enumerate(recorded):
+        rec = sao_alf_on_card(rec)
+        got = run_sao_alf(sao_alf_cuda, rec)
+        want = run_sao_alf(sao_alf_ref, rec)
+        torch.cuda.synchronize()
+        err = max(int((a - b).abs().max()) for a, b in zip(got, want))
+        serrs.append(err)
+        fail_unless(err == 0, f"{label}: SAO/ALF picture {i} on the path's "
+                    f"inputs: max |err| {err}")
+    print(f"[{label}] SAO/ALF kernels == plain version on all "
+          f"{len(recorded)} recorded pictures")
+
+
+def sao_alf_work(rec: dict) -> tuple[int, int]:
+    """(bytes, two-launch bytes) of one recorded call: each input plane
+    read once and each output plane written once, the int16 parameter
+    vector read once; the two-launch count also writes the post-SAO
+    planes and reads them again, and reads the vector twice."""
+    planes = sum(p.numel() for p in rec["planes"]) * 4
+    params = rec["flat"].numel() * 2
+    return 2 * planes + params, 4 * planes + 2 * params
+
+
+def sao_alf_times(recorded, label: str) -> dict:
+    """Per picture of `recorded` (sao_alf_recording's calls): each
+    kernel's device time (torch.profiler over about TRACE_LAUNCHES
+    launches), the plain version's (its kernels in one traced run), the
+    wrapper calls' stream time (CUDA events, the host's cost between
+    launches included) and the bounds."""
+    from vvdec_tpu_torch.ops.cuda.sao_alf import sao_alf_cuda, sao_alf_ref
+    recs = [sao_alf_on_card(r) for r in recorded]
+    n = len(recs)
+    n_sao, n_alf = (sum(v) for v in zip(*(sao_alf_launches(r["key"])
+                                          for r in recs)))
+
+    def run(fn=sao_alf_cuda):
+        for rec in recs:
+            run_sao_alf(fn, rec)
+
+    reps = -(-TRACE_LAUNCHES // (n_sao + n_alf))
+    sao_ms = device_ms(run, reps, "sao_kernel", launches=n_sao) / n \
+        if n_sao else 0.0
+    alf_ms = device_ms(run, reps, "alf_ccalf_kernel", launches=n_alf) / n \
+        if n_alf else 0.0
+    p_ms = trace_device_ms(lambda: run(sao_alf_ref)) / n
+    c_ms = cuda_ms(run, 10) / n
+    nb, nb2 = (sum(v) / n for v in zip(*map(sao_alf_work, recs)))
+    b_ms = nb / HBM_BYTES_PER_S * 1e3
+    b2_ms = nb2 / HBM_BYTES_PER_S * 1e3
+    print(f"[{label}] SAO/ALF per picture (mean of {n}): "
+          f"{(n_sao + n_alf) / n:.2f} launches; device time sao_kernel "
+          f"{sao_ms:.4f} ms, alf_ccalf_kernel {alf_ms:.4f} ms, plain "
+          f"{p_ms:.3f} ms; bound {b_ms:.6f} ms (bytes; two launches "
+          f"{b2_ms:.6f} ms); stream time of the wrapper calls {c_ms:.4f} "
+          f"ms")
+    return dict(sao_alf_ms=sao_ms + alf_ms, sao_ms=sao_ms, alf_ms=alf_ms,
+                sao_alf_plain_ms=p_ms, sao_alf_call_ms=c_ms,
+                sao_alf_bound_ms=b_ms, sao_alf_bound_by="bytes",
+                sao_alf_bound_two_launch_ms=b2_ms,
+                sao_alf_launches_per_picture=(n_sao + n_alf) / n,
+                sao_alf_pictures=n)
+
+
+# phase 3's SAO/ALF cases: label, height, width, CTU, chroma format, bit
+# depth, frames (0: no frame axis); every stage on
+SAO_ALF_SHAPES = (("832x480 4:2:0 10-bit CTU 128", 480, 832, 128, 1, 10, 0),
+                  ("832x480 4:2:0 10-bit CTU 128, 3 frames", 480, 832, 128,
+                   1, 10, 3),
+                  ("1920x1080 4:2:0 10-bit CTU 128", 1080, 1920, 128, 1, 10,
+                   0),
+                  ("832x480 4:0:0 8-bit CTU 64", 480, 832, 64, 0, 8, 0),
+                  ("832x480 4:2:2 10-bit CTU 64", 480, 832, 64, 2, 10, 0),
+                  ("832x480 4:4:4 8-bit CTU 32", 480, 832, 32, 3, 8, 0))
+
+
+def phase_sao_alf_vs_plain(serrs: list) -> None:
+    """The SAO/ALF kernels against their plain version on fuzzed planes
+    and parameters (ops/cuda/sao_alf.random_inputs: every SAO type,
+    bands wrapping past 31, several luma banks, chroma alternatives,
+    CC-ALF banks, indices past both ends), bit-equal; per case each
+    kernel's device time (torch.profiler, 50 calls of 2 launches), the
+    plain version's and the bound."""
+    import torch
+
+    from vvdec_tpu_torch.ops.cuda.sao_alf import (random_inputs,
+                                                  sao_alf_cuda, sao_alf_ref)
+    print("[kernel] sao_alf_cuda vs sao_alf_ref, fuzzed planes and "
+          "parameters, bit-equal; ms per call (2 launches): device time of "
+          "sao_kernel and alf_ccalf_kernel and of the plain version's "
+          "kernels (torch.profiler), bound of one read and one write of "
+          "each plane")
+    for i, (label, h, w, ctu, cfmt, bd, frames) in enumerate(
+            SAO_ALF_SHAPES):
+        planes, flat, key = random_inputs(200 + i, h, w, cfmt=cfmt, bd=bd,
+                                          ctu=ctu, frames=frames)
+        rec = dict(planes=[torch.from_numpy(p).cuda() for p in planes],
+                   flat=torch.from_numpy(flat).cuda(), key=key)
+        got = run_sao_alf(sao_alf_cuda, rec)
+        want = run_sao_alf(sao_alf_ref, rec)
+        torch.cuda.synchronize()
+        err = max(int((a - b).abs().max()) for a, b in zip(got, want))
+        serrs.append(err)
+        fail_unless(err == 0, f"SAO/ALF {label}: max |err| {err}")
+        changed = sum(int((a != b).sum()) for a, b in zip(got,
+                                                          rec["planes"]))
+        sao_ms = device_ms(lambda: run_sao_alf(sao_alf_cuda, rec), 50,
+                           "sao_kernel", launches=1)
+        alf_ms = device_ms(lambda: run_sao_alf(sao_alf_cuda, rec), 50,
+                           "alf_ccalf_kernel", launches=1)
+        p_ms = trace_device_ms(lambda: run_sao_alf(sao_alf_ref, rec))
+        b_ms = sao_alf_work(rec)[0] / HBM_BYTES_PER_S * 1e3
+        print(f"[kernel] SAO/ALF {label}: {changed} samples changed; "
+              f"sao_kernel {sao_ms:.4f} ms, alf_ccalf_kernel {alf_ms:.4f} "
+              f"ms, plain {p_ms:.3f} ms, bound {b_ms:.6f} ms (bytes); "
+              f"bit-equal")
 
 
 class WavefrontLog:
@@ -1952,11 +2157,16 @@ def phase_multidevice(errs: list) -> dict:
         out["sharded"] = dict(frame_row=fr, row=row, deblock_bands=bands)
 
         # (b) the batched chain
+        from vvdec_tpu_torch.ops.cuda.sao_alf import sao_alf_cuda
         before = deblock_dense_cuda.launches
+        sa_before = sao_alf_cuda.launches
         batch = dp.filter_frames_device_batch(items)
         batch_launches = deblock_dense_cuda.launches - before
+        sa_launches = sao_alf_cuda.launches - sa_before
         fail_unless(batch_launches == 2, f"the batched chain of 4 pictures "
                     f"made {batch_launches} deblock launches, not 2")
+        fail_unless(sa_launches == 2, f"the batched chain of 4 pictures "
+                    f"made {sa_launches} SAO/ALF launches, not 2")
         for i, (pf, (cs, planes)) in enumerate(zip(batch, items)):
             for c, (a, b) in enumerate(zip(
                     pf.resolve(), dp.filter_frame_device(cs, planes)
@@ -1976,13 +2186,15 @@ def phase_multidevice(errs: list) -> dict:
         ms_batch = cuda_ms(run_batch, 3)
         ms_frames = cuda_ms(run_frames, 3)
         print(f"[multi] (b) filter_frames_device_batch of 4 pictures: "
-              f"{batch_launches} deblock launches; "
+              f"{batch_launches} deblock launches, {sa_launches} SAO/ALF "
+              f"launches; "
               f"{k_batch} device kernels/copies against 4 x {k_one} = "
               f"{4 * k_one} for 4 per-frame chains; {ms_batch:.2f} ms against"
               f" {ms_frames:.2f} ms per 4 pictures (stream time); bit-equal")
         out["batch"] = dict(kernels=k_batch, kernels_one=k_one,
                             ms=ms_batch, ms_per_frame_chains=ms_frames,
-                            deblock_launches=batch_launches)
+                            deblock_launches=batch_launches,
+                            sao_alf_launches=sa_launches)
 
         # (c) the device-resident DPB
         dpb = dryrun.device_dpb_parity(built("inter-LD"), [card] * 4, n=4)
@@ -2387,7 +2599,8 @@ def itx_per_frame(recorded, label: str, verbose: bool, reps: int = 11
                 itx_call_ms=mean["call_ms"], itx_bound_ms=mean["bound_ms"])
 
 
-def phase_bench_configs(errs: list, werrs: list, derrs: list) -> dict:
+def phase_bench_configs(errs: list, werrs: list, derrs: list,
+                        serrs: list) -> dict:
     """13. The rest of bench.py's configurations: dense q27, max-density
     q22, all eight frames of tool-rich and SAO/ALF, SAO/ALF 1920x1080 and
     inter-LD 1920x1080, made by the background builders.  Per stream two
@@ -2404,7 +2617,10 @@ def phase_bench_configs(errs: list, werrs: list, derrs: list) -> dict:
     PER_FRAME_ITX streams and over all the tool-rich frames; the intra
     wavefront kernel on every recorded picture (check_wavefront); the
     deblock kernel on every picture's pre-deblock planes (check_deblock),
-    timed per frame on the 1080p streams (deblock_times)."""
+    timed per frame on the 1080p streams (deblock_times); on the SAO/ALF
+    streams, the SAO/ALF kernels (two launches a picture) on every
+    picture's post-deblock planes (check_sao_alf), timed per frame
+    (sao_alf_times)."""
     import torch
 
     from vvdec_tpu_torch.streams import (BENCH_STREAMS, PREFIXES, STREAMS,
@@ -2425,12 +2641,18 @@ def phase_bench_configs(errs: list, werrs: list, derrs: list) -> dict:
         wf = WavefrontLog(keep=n_frames if name == "SAO/ALF 1080p" else 1,
                           host=True)
         db = DeblockLog(keep=n_frames, host=True)
+        sa = SaoAlfLog(keep=n_frames, host=True)
         # the first decode records the kernels' inputs in host memory;
         # the stage split, frames/s and peak memory come from the second,
         # which records nothing
-        timed_decode(stream, n_frames, md5_pin, name, size=(w, h),
-                     recorded=recorded, prefix=prefix_pins.get(name),
-                     wavefront=wf, deblock=db)
+        first = timed_decode(stream, n_frames, md5_pin, name, size=(w, h),
+                             recorded=recorded, prefix=prefix_pins.get(name),
+                             wavefront=wf, deblock=db, sao_alf=sa)
+        if name.startswith("SAO/ALF"):
+            fail_unless(first["sao_alf_launches"] == 2 * n_frames
+                        == 2 * sa.pictures, f"{name}: "
+                        f"{first['sao_alf_launches']} SAO/ALF launches for "
+                        f"{sa.pictures} pictures of {n_frames}")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         res = timed_decode(stream, n_frames, md5_pin, name, size=(w, h),
@@ -2450,6 +2672,10 @@ def phase_bench_configs(errs: list, werrs: list, derrs: list) -> dict:
         if w == 1920:
             res.update(deblock_times(db.recorded, name))
         del db
+        check_sao_alf(sa.recorded, serrs, name)
+        if sa.recorded:
+            res.update(sao_alf_times(sa.recorded, name))
+        del sa
         if name in PER_FRAME_ITX or name == "tool-rich 8":
             res.update(itx_per_frame(recorded, name,
                                      verbose=name in PER_FRAME_ITX))
@@ -2503,6 +2729,8 @@ def main(argv=None) -> int:
         timed("kernel", phase_kernel_vs_plain, errs_kernel)
         derrs: list = []   # the deblock kernel's comparisons
         timed("deblock kernel", phase_deblock_vs_plain, derrs)
+        serrs: list = []   # the SAO/ALF kernels' comparisons
+        timed("SAO/ALF kernels", phase_sao_alf_vs_plain, serrs)
         timed("stream builds", wait_bench_builds)
         errs += errs_kernel
         werrs: list = []   # the intra wavefront kernel's comparisons
@@ -2523,7 +2751,7 @@ def main(argv=None) -> int:
         stages = timed("frame stages", phase_frame_stages, batch_errs)
         errs += batch_errs
         bench = timed("bench configurations", phase_bench_configs, errs,
-                      werrs, derrs)
+                      werrs, derrs, serrs)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2546,6 +2774,12 @@ def main(argv=None) -> int:
                                         inter["inter-LDB tools"], ra, host,
                                         surface["api"], surface["conceal"],
                                         multi, *bench.values()))
+    # the timed decodes' and phase 11's batched chain's
+    sao_alf_launches = multi["batch"]["sao_alf_launches"] + sum(
+        r["sao_alf_launches"] for r in (main_path, lmcs, inter["inter-LD"],
+                                        inter["inter-LDB tools"], ra, host,
+                                        *bench.values()))
+    sa8 = bench["SAO/ALF 8"]
     # the headline's first picture, the one both versions were timed on
     head = main_path["intra_kernel"][0]
     kernels = [dict(
@@ -2577,7 +2811,15 @@ def main(argv=None) -> int:
         bound_ms=main_path["deblock_bound_ms"],
         bound_by=main_path["deblock_bound_by"], library_ms=None,
         call_ms=main_path["deblock_call_ms"],
-        bound_two_pass_ms=main_path["deblock_bound_two_pass_ms"])]
+        bound_two_pass_ms=main_path["deblock_bound_two_pass_ms"]), dict(
+        name="sao_alf", route="cuda", source="vvdec_tpu_torch/csrc/sao_alf.cu",
+        replaces="vvdec_tpu/ops/device_pipeline.py:503-634",
+        launches=sao_alf_launches, max_abs_err=max(serrs),
+        ms=sa8["sao_alf_ms"], sao_ms=sa8["sao_ms"], alf_ms=sa8["alf_ms"],
+        plain_ms=sa8["sao_alf_plain_ms"], bound_ms=sa8["sao_alf_bound_ms"],
+        bound_by=sa8["sao_alf_bound_by"], library_ms=None,
+        call_ms=sa8["sao_alf_call_ms"],
+        bound_two_launch_ms=sa8["sao_alf_bound_two_launch_ms"])]
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kernels=kernels, main_path=main_path,

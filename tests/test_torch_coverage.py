@@ -40,6 +40,10 @@ NO_COUNTERPART = {
         "csrc/itx.cu (int8 tensor-core products with the hi/lo split)",
     ("ops/pallas/itx.py", "itx_batch_pallas"):
         "ops/cuda/itx.itx_batch_cuda (same interface, csrc/itx.cu)",
+    # the port's chain takes a leading frame axis itself
+    ("ops/device_pipeline.py", "_chain_fn_batched"):
+        "vmap of _chain_fn; the port's _chain_fn takes the stacked "
+        "pictures, each kernel launching once for them",
     # a second ALF classifier of the reference; the port keeps the dense
     # one, and tests/test_torch_filters.py holds it against both
     ("ops/device_pipeline.py", "_classify_jnp"):

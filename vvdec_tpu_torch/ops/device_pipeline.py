@@ -6,10 +6,13 @@ int16 parameter upload and one packed readback per frame.
 Port of vvdec_tpu/ops/device_pipeline.py (the single-frame chain).
 The deblock runs as the hand-written kernel csrc/deblock.cu
 (ops/cuda/deblock.deblock_dense_cuda: one launch per direction a
-picture, or a stack of pictures; its plain version on CPU tensors).
-Parameters are uploaded as compact per-CTU tensors and expanded to
-per-pixel maps on the device.  The stages compute what the reference's
-do, not always as it does: the ALF classification evaluates its
+picture, or a stack of pictures), SAO, ALF and CC-ALF as csrc/sao_alf.cu
+(ops/cuda/sao_alf.sao_alf_cuda: at most two launches a picture, or a
+stack of pictures); on CPU tensors each runs its plain version.
+Parameters are uploaded as compact per-CTU tensors, which the kernels
+read as uploaded and the plain versions expand to per-pixel maps.  The
+plain stages compute what the reference's do, not always as it does:
+the ALF classification evaluates its
 laplacians on the half-sample grid only, CC-ALF filters at the chroma
 positions only, and the edge padding is built from clamped indices
 (torch's `replicate` pad does not take integer tensors on CUDA).  The
@@ -26,9 +29,8 @@ import numpy as np
 import torch
 
 from vvdec_tpu_torch.ops.cuda.deblock import deblock_dense_cuda
+from vvdec_tpu_torch.ops.cuda.sao_alf import sao_alf_cuda
 from vvdec_tpu_torch.ops.deblock_dense import pack_chroma_grid, pack_luma_grid
-from vvdec_tpu_torch.ops.intra_device import _jidx
-from vvdec_tpu_torch.ops.pipeline import _alf_diamond_dense_core
 from vvdec_tpu_torch.utils.trace import profiler
 
 _ACT_TH = np.array((0, 1, 2, 2, 2, 2, 2, 3, 3, 3, 3, 3, 3, 3, 3, 4),
@@ -397,11 +399,6 @@ def _chain_fn(key):
     (h, w, hc, wc, bd, ctu, sub_w, sub_h, num_comp, w_ctu,
      db_on, n_sl, sao_on, alf_luma, alf_chroma, cc_on, n_banks, n_cb,
      n_cc, pack_pad) = key
-    h4, w4 = h // 4, w // 4
-    vb_luma_h, vb_luma_pos = ctu, ctu - 4
-    vb_chma_h = ctu // sub_h
-    vb_chma_pos = vb_chma_h - 2
-    rest_fields = [n for n, _ in _flat_layout(key) if n not in _DB_FIELDS]
 
     def deblock(planes, P):
         """In place on the list: V then H edges of every component, one
@@ -412,106 +409,43 @@ def _chain_fn(key):
             P["db_si"] if n_sl > 1 else None, P["db_sltab"], bd=bd, ctu=ctu,
             sub_w=sub_w, sub_h=sub_h, n_sl=n_sl)
 
-    def sao(planes, P):
-        """In place on the list, each plane with its CTU grid."""
-        for comp in range(num_comp):
-            ph_, pw_ = (hc, wc) if comp else (h, w)
-            planes[comp] = _sao_plane(
-                planes[comp], P["sao_type"][comp], P["sao_vals"][comp],
-                h=ph_, w=pw_, ctu_w=(ctu // sub_w) if comp else ctu,
-                ctu_h=(ctu // sub_h) if comp else ctu, w_ctu=w_ctu, bd=bd)
-
     def pack(planes):
-        flat = torch.cat([p.reshape(-1) for p in planes])
+        """The 10-bit (or 8-bit) output bytes; planes may carry a leading
+        frame axis."""
+        lead = tuple(planes[0].shape[:-2])
+        flat = torch.cat([p.reshape(lead + (-1,)) for p in planes], -1)
         if pack_pad:
-            flat = torch.cat([flat, flat.new_zeros(pack_pad)])
+            flat = torch.cat([flat, flat.new_zeros(lead + (pack_pad,))], -1)
         if bd <= 8:
             return flat.to(torch.uint8)
-        g = flat.reshape(-1, 4)
-        b0 = g[:, 0] & 255
-        b1 = (g[:, 0] >> 8) | ((g[:, 1] & 63) << 2)
-        b2 = (g[:, 1] >> 6) | ((g[:, 2] & 15) << 4)
-        b3 = (g[:, 2] >> 4) | ((g[:, 3] & 3) << 6)
-        b4 = g[:, 3] >> 2
+        g = flat.reshape(lead + (-1, 4))
+        b0 = g[..., 0] & 255
+        b1 = (g[..., 0] >> 8) | ((g[..., 1] & 63) << 2)
+        b2 = (g[..., 1] >> 6) | ((g[..., 2] & 15) << 4)
+        b3 = (g[..., 2] >> 4) | ((g[..., 3] & 3) << 6)
+        b4 = g[..., 3] >> 2
         return torch.stack([b0, b1, b2, b3, b4], -1).to(torch.uint8) \
-            .reshape(-1)
+            .reshape(lead + (-1,))
 
-    def alf(planes, P, dev: str):
-        """ALF and CC-ALF: read the post-SAO planes, write fresh ones."""
-        out = list(planes)
-        ctu4 = ctu >> 2
-        if alf_luma:
-            fn = _alf_diamond_dense_core(h, w, bd, 12, vb_luma_h,
-                                         vb_luma_pos, False, dev)
-            cls, tr = _classify_dense(planes[0], h, w, bd, vb_luma_h,
-                                      vb_luma_pos)
-            set4 = _expand_ctu(P["set_ctu"], ctu4, ctu4, h4, w4, w_ctu)
-            sel = (_jidx(set4, n_banks), _jidx(tr, 4), _jidx(cls, 25))
-            co = _rep4(P["banks_co"][sel][:, :, :12], h, w)
-            cl = _rep4(P["banks_cl"][sel][:, :, :12], h, w)
-            mask = _rep4(_expand_ctu(P["en_y"], ctu4, ctu4, h4, w4, w_ctu),
-                         h, w) != 0
-            out[0] = fn(planes[0], co, cl, mask)
-        if num_comp > 1 and (alf_chroma or cc_on):
-            hc4, wc4 = (hc + 3) >> 2, (wc + 3) >> 2
-            lc4w = (ctu // sub_w) >> 2
-            lc4h = (ctu // sub_h) >> 2
-            for k in range(2):
-                comp = 1 + k
-                if alf_chroma:
-                    fn = _alf_diamond_dense_core(hc, wc, bd, 6, vb_chma_h,
-                                                 vb_chma_pos, True, dev)
-                    en4 = _expand_ctu(P["en_c"][k], lc4h, lc4w, hc4, wc4,
-                                      w_ctu)
-                    alt4 = _jidx(_expand_ctu(P["alt_ctu"][k], lc4h, lc4w,
-                                             hc4, wc4, w_ctu), n_cb)
-                    co = _rep4(P["cbanks_co"][alt4][:, :, :6], hc, wc)
-                    cl = _rep4(P["cbanks_cl"][alt4][:, :, :6], hc, wc)
-                    maskc = _rep4(en4, hc, wc) != 0
-                    out[comp] = fn(planes[comp], co, cl, maskc)
-                if cc_on:
-                    fn = _ccalf_dense_core(h, w, hc, wc, bd, sub_w, sub_h,
-                                           ctu, w_ctu, n_cc, dev)
-                    out[comp] = fn(planes[0], out[comp], P["cc_banks"],
-                                   P["cc_ctu"][k])
-        return out
-
-    def deblocked(planes, flat):
-        """The planes after the deblock (none without it); planes and
-        flat may carry a leading frame axis."""
+    def chain(planes, flat):
+        """The deblock, SAO, ALF / CC-ALF and the pack; planes and flat
+        may carry a leading frame axis (the batched chain's stacked
+        pictures: each kernel still launches once)."""
         planes = list(planes)
+        dev = str(planes[0].device)
         if db_on:
-            dev = str(planes[0].device)
             with timed_stage("filter: params", dev):
                 P = _flat_unpack(key, flat, _DB_FIELDS)
             with timed_stage("filter: deblock", dev):
                 deblock(planes, P)
-        return planes
-
-    def filters(planes, flat):
-        """SAO, ALF / CC-ALF and the pack after the deblock, one picture
-        (vmapped by the batched chain)."""
-        planes = list(planes)
-        dev = str(planes[0].device)
-        with timed_stage("filter: params", dev):
-            P = _flat_unpack(key, flat, rest_fields)
-        if sao_on:
-            with timed_stage("filter: sao", dev):
-                sao(planes, P)
-        out = planes
-        if alf_luma or alf_chroma or cc_on:
-            with timed_stage("filter: alf", dev):
-                out = alf(planes, P, dev)
+        if sao_on or alf_luma or alf_chroma or cc_on:
+            with timed_stage("filter: sao/alf", dev):
+                planes = list(sao_alf_cuda(planes, flat, key))
         with timed_stage("filter: pack", dev):
-            out = [p.contiguous() for p in out]
-            packed = pack(out[:num_comp])
-        return tuple(out[:num_comp]), packed
+            out = [p.contiguous() for p in planes]
+            packed = pack(out)
+        return tuple(out), packed
 
-    def chain(planes, flat):
-        return filters(deblocked(planes, flat), flat)
-
-    chain.deblocked = deblocked
-    chain.filters = filters
     return chain
 
 
@@ -834,23 +768,6 @@ def batch_key(per, at: int):
     return keys[0][:at] + tuple(counts) + keys[0][at + 3:]
 
 
-@functools.lru_cache(maxsize=None)
-def _chain_fn_batched(key):
-    """The chain of `_chain_fn(key)` over a leading frame axis in one
-    pass: run(planes, flat) with planes [F, h, w] per component and flat
-    [F, n] -> (filtered planes [F, ...], packed [F, n_bytes]).  The
-    deblock runs on the stacked planes (one kernel launch per direction
-    for the F pictures; a ctypes launch cannot run under vmap), the rest
-    of the chain under torch.func.vmap."""
-    chain = _chain_fn(key)
-    rest = torch.func.vmap(chain.filters)
-
-    def run(planes, flat):
-        return rest(tuple(chain.deblocked(planes, flat)), flat)
-
-    return run
-
-
 def filter_frames_device_batch(items) -> list[PendingFrame]:
     """Filter a batch of pictures [(cs, planes), ...] of one geometry and
     filter config in one pass, the frames stacked on a leading axis
@@ -868,7 +785,7 @@ def filter_frames_device_batch(items) -> list[PendingFrame]:
     shapes = [tuple(p.shape) for p in items[0][1][:num_comp]]
     dev = items[0][1][0].device
     with timed_stage("filter: params", dev):
-        fn = _chain_fn_batched(key)
+        fn = _chain_fn(key)
         flat = upload(
             np.stack([_flat_pack(key, arrays) for _, arrays in per]), dev,
             "wait: upload filter params")
